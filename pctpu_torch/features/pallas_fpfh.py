@@ -1,0 +1,319 @@
+"""Fused FPFH-33 — kernels K2 `spfh` and K3 `wsum` (`csrc/fpfh.cu`), the
+port of `pctpu/features/pallas_fpfh.py` (`_spfh_kernel`, `_wsum_kernel`,
+driven by `_fpfh_fused_impl`).
+
+Pass 1 (K2) builds each point's SPFH: 3 x 11-bin histograms of the
+Darboux angles to every radius-r neighbour (self excluded), scaled by
+100 / count. Pass 2 (K3) adds the 1/dist-weighted mean of the neighbours'
+SPFH rows. Every pairwise dot the Darboux frame needs factors into
+per-point vectors (see the reference's module docstring), so the db side
+is packed once as 12 rows per point and the query side as 11 columns.
+
+Exact x-band pruning: on a cell-lexsorted voxel cloud the radius-r
+neighbours of a query tile lie in one contiguous x range; `_band_tables`
+gives each (batch, query tile) the [base, base + nt) db tiles to visit.
+A skipped column has |dx| > r, so it could never enter a histogram.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from pctpu_torch import kernels
+from pctpu_torch.core.cloud import round_up
+from pctpu_torch.ops.eigh3 import _cross
+
+N_BINS = 11
+BIG = 1e30
+PI = math.pi
+# the reference's f32 constants (python floats become f32 in the kernel)
+_TWO_PI_INV = N_BINS / (2.0 * math.pi)
+
+
+def _atan2f(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """The reference's polynomial atan2 (Cephes atanf minimax on [0,1] +
+    octant reduction, |err| ~1e-7 rad) — kept instead of torch.atan2 so
+    bin boundaries fall where the TPU kernel puts them."""
+    ax, ay = torch.abs(x), torch.abs(y)
+    hi = torch.maximum(ax, ay)
+    a = torch.minimum(ax, ay) / torch.clamp_min(hi, 1e-30)
+    z = a * a
+    p = ((((8.05374449538e-2 * z - 1.38776856032e-1) * z
+           + 1.99777106478e-1) * z - 3.33329491539e-1) * z * a + a)
+    r = torch.where(ay > ax, PI / 2 - p, p)
+    r = torch.where(x < 0, PI - r, r)
+    return torch.where(y < 0, -r, r)
+
+
+def _bin(f: torch.Tensor, offset: float, scale: float) -> torch.Tensor:
+    # clip in float before the int cast: a saturating conversion + clip
+    return torch.clamp(torch.floor((f + offset) * scale), 0,
+                       N_BINS - 1).long()
+
+
+def _band_tables(xs: torch.Tensor, valid: torch.Tensor, radius: float,
+                 q_tile: int, db_tile: int, slack: float = 0.0):
+    """Per-(batch, query-tile) [base db tile, db tile count) covering all
+    VALID columns with x within `radius` of the tile's x range.
+
+    xs [B,Np], valid [B,Np]. Valid columns must be nondecreasing in x up
+    to inversions of at most `slack` (a cell-lexsorted voxel cloud with
+    slack = leaf). Binary search runs on M = cummax(valid ? x : -BIG),
+    which is exactly nondecreasing."""
+    b, np_ = xs.shape
+    n_tiles = np_ // db_tile
+    xt = xs.reshape(b, -1, q_tile)
+    vt = valid.reshape(b, -1, q_tile)
+    tmin = torch.amin(torch.where(vt, xt, torch.full_like(xt, BIG)), dim=2)
+    tmax = torch.amax(torch.where(vt, xt, torch.full_like(xt, -BIG)), dim=2)
+    m, _ = torch.cummax(torch.where(valid, xs, torch.full_like(xs, -BIG)),
+                        dim=1)
+    lo = torch.searchsorted(m, tmin - radius).int()
+    hi = torch.searchsorted(m, tmax + radius + slack, right=True).int()
+    base = torch.div(lo, db_tile, rounding_mode="floor")
+    nt = -torch.div(-(hi - base * db_tile), db_tile, rounding_mode="floor")
+    nt = torch.minimum(torch.clamp_min(nt, 0), n_tiles - base)
+    nt = torch.where(torch.any(vt, dim=2), nt, torch.zeros_like(nt))
+    return base.int().contiguous(), nt.int().contiguous()
+
+
+def _pack(points: torch.Tensor, mask: torch.Tensor, normals: torch.Tensor,
+          np_: int):
+    """Query-side [B,Np,11] (q, u, q x u, |q|^2, u.q) and db-side
+    [B,12,Np] (p, v, v x p, |p|^2, p.v, mask penalty) packings."""
+    b, n, _ = points.shape
+    pts = torch.where(mask[..., None], points.float(),
+                      torch.zeros_like(points, dtype=torch.float32))
+    pad = (0, 0, 0, np_ - n)
+    p = torch.nn.functional.pad(pts, pad)
+    v = torch.nn.functional.pad(normals.float(), pad)
+    p2 = torch.sum(p * p, dim=-1, keepdim=True)
+    pv = torch.sum(p * v, dim=-1, keepdim=True)
+    amat = torch.cat([p, v, _cross(p, v), p2, pv], dim=-1)
+    col_valid = torch.nn.functional.pad(mask, (0, np_ - n))
+    pen = torch.where(col_valid, 0.0, BIG).float()[..., None]
+    dbmat = torch.cat([p, v, _cross(v, p), p2, pv, pen],
+                      dim=-1).transpose(1, 2)
+    return amat.contiguous(), dbmat.contiguous(), col_valid
+
+
+def _band_windows(base, nt, i, j, db_tile, device):
+    """Columns of each batch element's j-th in-band db tile for query
+    tile i ([B,db_tile] int64) and whether that tile exists ([B])."""
+    start = (base[:, i].long() + j) * db_tile
+    live = j < nt[:, i]
+    cols = start[:, None] + torch.arange(db_tile, device=device)[None, :]
+    cols = torch.where(live[:, None], cols, torch.zeros_like(cols))
+    return cols, live
+
+
+def _dot3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """[B,TQ,3] . [B,3,TN] -> [B,TQ,TN] as a0*b0 + a1*b1 + a2*b2, each
+    product and sum rounded in the kernel's order (a matmul may fuse or
+    reorder them and move pairs across the radius test)."""
+    return (a[..., 0:1] * b[:, None, 0] + a[..., 1:2] * b[:, None, 1]
+            + a[..., 2:3] * b[:, None, 2])
+
+
+def _rsqrt(d2: torch.Tensor) -> torch.Tensor:
+    """rsqrt(max(d2, 1e-12)) as a correctly rounded sqrt and divide, as
+    the kernel computes it (torch.rsqrt on the card is an approximation)."""
+    return 1.0 / torch.sqrt(torch.clamp_min(d2, 1e-12))
+
+
+def _db_tile(dbmat: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
+    return torch.gather(dbmat, 2, cols[:, None, :].expand(
+        -1, dbmat.shape[1], -1))                          # [B,12,TN]
+
+
+def spfh_plain(amat, dbmat, base, nt, q_tile: int, db_tile: int,
+               r2: float):
+    """Plain PyTorch version of K2: (hist [B,Np,33], cnt [B,Np]), the
+    same formulas as the kernel, one (query tile, db tile) at a time."""
+    b, np_, _ = amat.shape
+    dev = amat.device
+    hist = torch.zeros((b, np_, 3 * N_BINS), dtype=torch.float32, device=dev)
+    cnt = torch.zeros((b, np_), dtype=torch.float32, device=dev)
+    for i in range(np_ // q_tile):
+        A = amat[:, i * q_tile:(i + 1) * q_tile]                # [B,TQ,11]
+        q, u, x = A[..., 0:3], A[..., 3:6], A[..., 6:9]
+        q2, uq = A[..., 9:10], A[..., 10:11]
+        rows = i * q_tile + torch.arange(q_tile, device=dev)[None, :, None]
+        h = torch.zeros((b, q_tile, 3 * N_BINS), dtype=torch.float32,
+                        device=dev)
+        c = torch.zeros((b, q_tile), dtype=torch.float32, device=dev)
+        for j in range(int(nt[:, i].max()) if b else 0):
+            cols, live = _band_windows(base, nt, i, j, db_tile, dev)
+            db = _db_tile(dbmat, cols)
+            P, V, W = db[:, 0:3], db[:, 3:6], db[:, 6:9]
+            qp, up = _dot3(q, P), _dot3(u, P)
+            qv, un, xv = _dot3(q, V), _dot3(u, V), _dot3(x, V)
+            uw = _dot3(u, W)
+            d2 = q2 + db[:, 9:10] - 2.0 * qp
+            within = ((d2 + db[:, 11:12] <= r2) & (rows != cols[:, None, :])
+                      & live[:, None, None])
+            wf = within.float()
+            inv_d = _rsqrt(d2)
+            f2 = (up - uq) * inv_d
+            s = torch.sqrt(torch.clamp_min(1.0 - f2 * f2, 0.0))
+            inv_s = 1.0 / torch.clamp_min(s, 1e-12)
+            f1 = (uw - xv) * inv_d * inv_s
+            dn = (db[:, 10:11] - qv) * inv_d
+            f3 = _atan2f((dn - f2 * un) * inv_s, un)
+            for k, (f, off, sc) in enumerate(((f1, 1.0, N_BINS / 2.0),
+                                              (f2, 1.0, N_BINS / 2.0),
+                                              (f3, PI, _TWO_PI_INV))):
+                part = torch.zeros((b, q_tile, N_BINS), dtype=torch.float32,
+                                   device=dev)
+                part.scatter_add_(2, _bin(f, off, sc), wf)
+                h[..., k * N_BINS:(k + 1) * N_BINS] += part
+            c += wf.sum(dim=2)
+        c = torch.clamp_min(c, 1.0)
+        hist[:, i * q_tile:(i + 1) * q_tile] = h * (100.0 / c)[..., None]
+        cnt[:, i * q_tile:(i + 1) * q_tile] = c
+    return hist, cnt
+
+
+def wsum_plain(amat, dbmat, base, nt, s33, q_tile: int, db_tile: int,
+               r2: float):
+    """Plain PyTorch version of K3: [B,Np,33] 1/dist-weighted sum of the
+    neighbours' SPFH rows over the neighbour count."""
+    b, np_, _ = amat.shape
+    dev = amat.device
+    out = torch.zeros((b, np_, 3 * N_BINS), dtype=torch.float32, device=dev)
+    for i in range(np_ // q_tile):
+        A = amat[:, i * q_tile:(i + 1) * q_tile]
+        q, q2 = A[..., 0:3], A[..., 9:10]
+        rows = i * q_tile + torch.arange(q_tile, device=dev)[None, :, None]
+        acc = torch.zeros((b, q_tile, 3 * N_BINS), dtype=torch.float32,
+                          device=dev)
+        k_eff = torch.zeros((b, q_tile), dtype=torch.float32, device=dev)
+        for j in range(int(nt[:, i].max()) if b else 0):
+            cols, live = _band_windows(base, nt, i, j, db_tile, dev)
+            db = _db_tile(dbmat, cols)
+            d2 = q2 + db[:, 9:10] - 2.0 * _dot3(q, db[:, 0:3])
+            within = ((d2 + db[:, 11:12] <= r2) & (rows != cols[:, None, :])
+                      & live[:, None, None])
+            wf = within.float()
+            wd = wf * _rsqrt(d2)
+            rows33 = torch.gather(s33, 1, cols[..., None].expand(
+                -1, -1, 3 * N_BINS))                          # [B,TN,33]
+            acc += torch.matmul(wd, rows33)
+            k_eff += wf.sum(dim=2)
+        out[:, i * q_tile:(i + 1) * q_tile] = (
+            acc / torch.clamp_min(k_eff, 1.0)[..., None])
+    return out
+
+
+def _check_fpfh_args(name, amat, dbmat, base, nt, q_tile, db_tile):
+    b, np_, c = amat.shape
+    if (c != 11 or dbmat.shape != (b, 12, np_) or np_ % q_tile
+            or np_ % db_tile or base.shape != (b, np_ // q_tile)
+            or nt.shape != base.shape):
+        raise ValueError(f"{name}: bad shapes amat {tuple(amat.shape)}, "
+                         f"dbmat {tuple(dbmat.shape)}, base "
+                         f"{tuple(base.shape)}, nt {tuple(nt.shape)}")
+
+
+def spfh(amat, dbmat, base, nt, q_tile: int, db_tile: int, r2: float):
+    """K2 wrapper -> (hist [B,Np,33], cnt [B,Np]). CPU tensors take the
+    plain version; CUDA tensors launch the kernel or raise. The kernel
+    runs one query per thread and needs q_tile == 256 and db_tile a
+    multiple of 128."""
+    _check_fpfh_args("spfh", amat, dbmat, base, nt, q_tile, db_tile)
+    if amat.device.type == "cpu":
+        return spfh_plain(amat, dbmat, base, nt, q_tile, db_tile, r2)
+    f32, i32 = torch.float32, torch.int32
+    kernels.require_cuda("spfh", amat, dbmat, base, nt,
+                         dtypes=(f32, f32, i32, i32))
+    if q_tile != 256 or db_tile % 128:
+        raise ValueError("spfh kernel needs q_tile == 256 and db_tile % 128 "
+                         f"== 0, got {q_tile}, {db_tile}")
+    b, np_, _ = amat.shape
+    hist = torch.empty((b, np_, 3 * N_BINS), dtype=f32, device=amat.device)
+    cnt = torch.empty((b, np_), dtype=f32, device=amat.device)
+    fn = kernels.entry("fpfh.cu", "pct_spfh", n_ptr=6, n_int=4, n_float=1)
+    kernels.check(fn(amat.data_ptr(), dbmat.data_ptr(), base.data_ptr(),
+                     nt.data_ptr(), hist.data_ptr(), cnt.data_ptr(),
+                     b, np_, q_tile, db_tile, r2,
+                     kernels.stream_ptr(amat.device)), "spfh")
+    spfh.launches += 1
+    return hist, cnt
+
+
+def wsum(amat, dbmat, base, nt, s33, q_tile: int, db_tile: int, r2: float):
+    """K3 wrapper -> [B,Np,33]. CPU tensors take the plain version; CUDA
+    tensors launch the kernel or raise (same tile rules as `spfh`)."""
+    _check_fpfh_args("wsum", amat, dbmat, base, nt, q_tile, db_tile)
+    if s33.shape != (amat.shape[0], amat.shape[1], 3 * N_BINS):
+        raise ValueError(f"wsum: bad s33 shape {tuple(s33.shape)}")
+    if amat.device.type == "cpu":
+        return wsum_plain(amat, dbmat, base, nt, s33, q_tile, db_tile, r2)
+    f32, i32 = torch.float32, torch.int32
+    kernels.require_cuda("wsum", amat, dbmat, base, nt, s33,
+                         dtypes=(f32, f32, i32, i32, f32))
+    if q_tile != 256 or db_tile % 128:
+        raise ValueError("wsum kernel needs q_tile == 256 and db_tile % 128 "
+                         f"== 0, got {q_tile}, {db_tile}")
+    b, np_, _ = amat.shape
+    out = torch.empty((b, np_, 3 * N_BINS), dtype=f32, device=amat.device)
+    fn = kernels.entry("fpfh.cu", "pct_wsum", n_ptr=6, n_int=4, n_float=1)
+    kernels.check(fn(amat.data_ptr(), dbmat.data_ptr(), base.data_ptr(),
+                     nt.data_ptr(), s33.data_ptr(), out.data_ptr(),
+                     b, np_, q_tile, db_tile, r2,
+                     kernels.stream_ptr(amat.device)), "wsum")
+    wsum.launches += 1
+    return out
+
+
+spfh.launches = 0
+wsum.launches = 0
+
+
+def fpfh_fused(points: torch.Tensor,
+               mask: Optional[torch.Tensor] = None,
+               normals: Optional[torch.Tensor] = None,
+               radius: float = 10.0,
+               normal_radius: float = 4.0,
+               q_tile: int = 256, db_tile: int = 512,
+               x_banded: bool = False, x_slack: float = 0.0) -> torch.Tensor:
+    """points [B,N,3] (or [N,3]) -> FPFH [B,N,33] (or [N,33]).
+
+    Normals default to `normals_radius_dense(normal_radius)`. Set
+    `x_banded=True` only when each cloud's valid prefix is sorted by x up
+    to inversions of at most `x_slack` (voxel output: x_slack = leaf)."""
+    squeeze = points.dim() == 2
+    if squeeze:
+        points = points[None]
+        mask = None if mask is None else mask[None]
+        normals = None if normals is None else normals[None]
+    b, n, _ = points.shape
+    if mask is None:
+        mask = torch.ones((b, n), dtype=torch.bool, device=points.device)
+    if normals is None:
+        from pctpu_torch.features.fpfh_dense import normals_radius_dense
+        normals = normals_radius_dense(points, mask,
+                                       radius=float(normal_radius))
+    np_ = round_up(n, max(q_tile, db_tile))
+    r2 = float(radius) ** 2
+    amat, dbmat, col_valid = _pack(points, mask, normals, np_)
+    nq = np_ // q_tile
+    if x_banded:
+        base, nt = _band_tables(amat[..., 0].contiguous(), col_valid,
+                                float(radius), q_tile, db_tile,
+                                slack=float(x_slack))
+    else:
+        base = torch.zeros((b, nq), dtype=torch.int32, device=points.device)
+        nt = torch.full((b, nq), np_ // db_tile, dtype=torch.int32,
+                        device=points.device)
+    s33, _ = spfh(amat, dbmat, base, nt, q_tile, db_tile, r2)
+    nbr = wsum(amat, dbmat, base, nt, s33, q_tile, db_tile, r2)
+
+    f = (s33 + nbr)[:, :n]
+    blocks = f.reshape(b, n, 3, N_BINS)
+    sums = torch.clamp_min(torch.sum(blocks, dim=-1, keepdim=True), 1e-12)
+    out = (100.0 * blocks / sums).reshape(b, n, 3 * N_BINS)
+    out = torch.where(mask[..., None], out, torch.zeros_like(out))
+    return out[0] if squeeze else out

@@ -1,0 +1,22 @@
+"""Row gathers with explicit batch dims (port of `pctpu/ops/gather.py`)."""
+from __future__ import annotations
+
+import torch
+
+
+def _flat_row_gather(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """points [*B, N, C], idx [*B, M] -> [*B, M, C].
+
+    Indices are clipped to [0, N-1] first, as the reference does, so an
+    out-of-range index can never read another batch element's rows."""
+    n, c = points.shape[-2], points.shape[-1]
+    idx = torch.clamp(idx, 0, n - 1).long()
+    if points.dim() == 2:
+        return points[idx]
+    return torch.gather(points, -2,
+                        idx[..., None].expand(*idx.shape, c))
+
+
+def gather_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """points [..., N, C], idx [..., M] -> [..., M, C]."""
+    return _flat_row_gather(points, idx)

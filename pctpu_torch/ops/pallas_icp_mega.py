@@ -1,0 +1,300 @@
+"""Whole-loop ICP: every fixed iteration in one launch — kernel K4
+(`csrc/icp_mega.cu`), the port of the TPU kernel
+`pctpu/ops/pallas_icp_mega.py:_icp_mega_kernel_batch` (body `_mega_body`),
+wrapped by `icp_mega_batch`.
+
+Each iteration, for each query tile: transform the tile by the current
+pose, pick the db window from the LUT (the tile's transformed centre),
+associate every query to its nearest db point in the window by
+`d2 = pen2 - 2 b.q` (tie-averaged within a `block`-sized db block, strict
+`<` across blocks), gate it by `d2 + |q|^2 + qpen < thresh^2`, and add
+its homogeneous moments to a 4x4 matrix. After the last tile the 3x3
+Procrustes problem is solved in scalars (Newton polar + adjugate flip,
+`_s_procrustes_from_moments`) and composed into the pose, unless fewer
+than 3 correspondences passed the gate.
+
+The plain version below runs the same formulas on [B]-batched tensors,
+including the same scalar-form Procrustes (not `register.procrustes`'s
+matrix form), so kernel and plain agree tightly.
+"""
+from __future__ import annotations
+
+import torch
+
+from pctpu_torch import kernels
+from pctpu_torch.ops.pallas_banded import LUT_BINS
+
+BIG = 1e30
+
+
+# ---------------------------------------------------------------------------
+# scalar-form 3x3 linear algebra on [B] tensors (tuples of tensors),
+# a line-for-line transcription of the reference's scalar-register code
+# ---------------------------------------------------------------------------
+
+def _s_cross(a, b):
+    return (a[1] * b[2] - a[2] * b[1],
+            a[2] * b[0] - a[0] * b[2],
+            a[0] * b[1] - a[1] * b[0])
+
+
+def _s_dot(a, b):
+    return a[0] * b[0] + a[1] * b[1] + a[2] * b[2]
+
+
+def _s_fro2(M):
+    return sum(M[i][j] * M[i][j] for i in range(3) for j in range(3))
+
+
+def _s_matmul(A, B):
+    return tuple(tuple(sum(A[i][k] * B[k][j] for k in range(3))
+                       for j in range(3)) for i in range(3))
+
+
+def _s_matvec(A, v):
+    return tuple(sum(A[i][k] * v[k] for k in range(3)) for i in range(3))
+
+
+def _s_inv_transpose(X):
+    c0 = _s_cross(X[1], X[2])
+    c1 = _s_cross(X[2], X[0])
+    c2 = _s_cross(X[0], X[1])
+    det = _s_dot(X[0], c0)
+    safe = torch.where(torch.abs(det) > 1e-30, det,
+                       torch.full_like(det, 1e-30))
+    inv = 1.0 / safe
+    return (tuple(c * inv for c in c0),
+            tuple(c * inv for c in c1),
+            tuple(c * inv for c in c2)), det
+
+
+def _s_rotation_polar3(H, newton_iters: int = 6):
+    fn = torch.sqrt(torch.clamp_min(_s_fro2(H), 1e-30))
+    X = tuple(tuple(h / fn for h in row) for row in H)
+    Hn = X
+    for _ in range(newton_iters):
+        Xit, _ = _s_inv_transpose(X)
+        g = torch.sqrt(torch.sqrt(
+            _s_fro2(Xit) / torch.clamp_min(_s_fro2(X), 1e-30)))
+        gi = 0.5 / g
+        gh = 0.5 * g
+        X = tuple(tuple(gh * X[i][j] + gi * Xit[i][j] for j in range(3))
+                  for i in range(3))
+    d = _s_dot(X[0], _s_cross(X[1], X[2]))
+    S = tuple(tuple(sum(X[k][i] * Hn[k][j] for k in range(3))
+                    for j in range(3)) for i in range(3))
+    S = tuple(tuple(0.5 * (S[i][j] + S[j][i]) for j in range(3))
+              for i in range(3))
+    # least eigenvalue of the SPD S: Newton on the characteristic cubic
+    # from 0, which converges monotonically from below
+    a = S[0][0] + S[1][1] + S[2][2]
+    b = (S[0][0] * S[1][1] - S[0][1] * S[0][1] + S[0][0] * S[2][2]
+         - S[0][2] * S[0][2] + S[1][1] * S[2][2] - S[1][2] * S[1][2])
+    c = _s_dot(S[0], _s_cross(S[1], S[2]))
+    lam = torch.zeros_like(a)
+    for _ in range(12):
+        f = ((lam - a) * lam + b) * lam - c
+        fp = (3.0 * lam - 2.0 * a) * lam + b
+        fp = torch.where(torch.abs(fp) > 1e-30, fp,
+                         torch.full_like(fp, 1e-30))
+        lam = lam - f / fp
+    # adj(S - lam I) is rank 1, its columns parallel to the least
+    # eigenvector: take the largest-norm cofactor row
+    B2 = tuple(tuple(S[i][j] - lam if i == j else S[i][j]
+                     for j in range(3)) for i in range(3))
+    a0 = _s_cross(B2[1], B2[2])
+    a1 = _s_cross(B2[2], B2[0])
+    a2 = _s_cross(B2[0], B2[1])
+    n0, n1, n2 = _s_dot(a0, a0), _s_dot(a1, a1), _s_dot(a2, a2)
+    use0 = (n0 >= n1) & (n0 >= n2)
+    use1 = n1 >= n2
+    v = tuple(torch.where(use0, a0[i], torch.where(use1, a1[i], a2[i]))
+              for i in range(3))
+    vn = torch.sqrt(torch.clamp_min(_s_dot(v, v), 1e-30))
+    v = tuple(c / vn for c in v)
+    Uf = tuple(tuple(X[i][j] - 2.0 * _s_dot(X[i], v) * v[j]
+                     for j in range(3)) for i in range(3))
+    neg = d < 0
+    return tuple(tuple(torch.where(neg, Uf[i][j], X[i][j])
+                       for j in range(3)) for i in range(3))
+
+
+def _s_procrustes_from_moments(m, newton_iters: int = 6):
+    """(R, t) from the 16 moments m[a][b] = sum w [p;1]_a [q;1]_b."""
+    sw = torch.clamp_min(m[3][3], 1e-12)
+    inv_sw = 1.0 / sw
+    sp = (m[0][3], m[1][3], m[2][3])
+    sq = (m[3][0], m[3][1], m[3][2])
+    H = tuple(tuple(m[j][i] - sq[i] * sp[j] * inv_sw for j in range(3))
+              for i in range(3))
+    R = _s_rotation_polar3(H, newton_iters=newton_iters)
+    src_c = tuple(c * inv_sw for c in sp)
+    dst_c = tuple(c * inv_sw for c in sq)
+    Rs = _s_matvec(R, src_c)
+    return R, tuple(dst_c[i] - Rs[i] for i in range(3))
+
+
+# ---------------------------------------------------------------------------
+# the plain version of K4
+# ---------------------------------------------------------------------------
+
+def _window_base(pose, scal, centers, lut, i, block, wb, nb):
+    """[B] first window block of query tile i (reference `_mega_body`
+    :202-218): the tile's transformed centre through the bucket LUT."""
+    r = pose
+    c0, c1, c2 = (centers[:, 3 * i + k] for k in range(3))
+    cx = r[0] * c0 + r[1] * c1 + r[2] * c2 + r[9]
+    cy = r[3] * c0 + r[4] * c1 + r[5] * c2 + r[10]
+    cz = r[6] * c0 + r[7] * c1 + r[8] * c2 + r[11]
+    lo, hi, axf = scal[:, 12], scal[:, 13], scal[:, 14]
+    val = torch.where(axf < 0.5, cx, torch.where(axf < 1.5, cy, cz))
+    binf = (val - lo) / torch.clamp_min(hi - lo, 1e-12) * LUT_BINS
+    bin_ = torch.clamp(binf, 0, LUT_BINS).long()   # trunc of the clipped
+    pos = torch.gather(lut, 1, bin_[:, None])[:, 0].long()
+    base = torch.div(pos - (wb * block) // 2 + block // 2, block,
+                     rounding_mode="floor")
+    return torch.clamp(base, 0, nb - wb)
+
+
+def icp_mega_plain(dbt5, lut, scal, src3, spen, centers, iters: int,
+                   thresh2: float, block: int, wb: int, query_tile: int,
+                   newton_iters: int = 6) -> torch.Tensor:
+    """Plain PyTorch version of K4 -> pose [B,12] (R row-major, t).
+    dbt5 [B,5,Np], lut [B,L] i32, scal [B,16], src3 [B,3,Mp],
+    spen [B,Mp], centers [B,3*ntiles]. Memory is bounded by one
+    [B, block, query_tile] distance tile."""
+    b, _, np_ = dbt5.shape
+    mp = src3.shape[2]
+    tq = query_tile
+    nb = np_ // block
+    dev = dbt5.device
+    pose = [scal[:, s] for s in range(12)]
+    ar_blk = torch.arange(block, device=dev)
+    for _ in range(iters):
+        # f64 moment sums (exact products), rounded once to f32: the
+        # result does not depend on the summation order, so the kernel
+        # and this version stay on one trajectory
+        m44 = torch.zeros((b, 4, 4), dtype=torch.float64, device=dev)
+        r = pose
+        for i in range(mp // tq):
+            base = _window_base(pose, scal, centers, lut, i, block, wb, nb)
+            q3 = src3[:, :, i * tq:(i + 1) * tq]
+            xt = (r[0][:, None] * q3[:, 0] + r[1][:, None] * q3[:, 1]
+                  + r[2][:, None] * q3[:, 2] + r[9][:, None])
+            yt = (r[3][:, None] * q3[:, 0] + r[4][:, None] * q3[:, 1]
+                  + r[5][:, None] * q3[:, 2] + r[10][:, None])
+            zt = (r[6][:, None] * q3[:, 0] + r[7][:, None] * q3[:, 1]
+                  + r[8][:, None] * q3[:, 2] + r[11][:, None])
+            qn = xt * xt + yt * yt + zt * zt
+            qpen = spen[:, i * tq:(i + 1) * tq]
+            a0, a1, a2 = -2.0 * xt, -2.0 * yt, -2.0 * zt
+            minv = torch.full((b, tq), BIG, dtype=torch.float32, device=dev)
+            macc = torch.cat([torch.zeros((b, 3, tq), device=dev),
+                              torch.ones((b, 1, tq), device=dev)], dim=1)
+            for j in range(wb):
+                cols = ((base + j) * block)[:, None] + ar_blk[None, :]
+                win = torch.gather(dbt5, 2, cols[:, None, :].expand(b, 5,
+                                                                    block))
+                wx, wy, wz, wp = (win[:, k, :, None] for k in range(4))
+                d2 = ((wx * a0[:, None, :] + wy * a1[:, None, :])
+                      + wz * a2[:, None, :]) + wp             # [B,blk,TQ]
+                tmin = torch.amin(d2, dim=1)
+                sel = (d2 <= tmin[:, None, :]).float()
+                win4 = win[:, (0, 1, 2, 4)]
+                ext = torch.bmm(win4, sel)                    # [B,4,TQ]
+                better = tmin < minv
+                minv = torch.where(better, tmin, minv)
+                macc = torch.where(better[:, None, :], ext, macc)
+            cnt = torch.clamp_min(macc[:, 3], 1.0)
+            matched = macc[:, 0:3] / cnt[:, None, :]
+            w = ((minv + qn + qpen) < thresh2).float()
+            ones = torch.ones_like(xt)
+            hp = torch.stack([xt, yt, zt, ones], dim=1) * w[:, None, :]
+            hq = torch.cat([matched, ones[:, None, :]], dim=1)
+            m44 = m44 + torch.bmm(hp.double(), hq.transpose(1, 2).double())
+        m44 = m44.float()
+        m = tuple(tuple(m44[:, a, c] for c in range(4)) for a in range(4))
+        R, t = _s_procrustes_from_moments(m, newton_iters=newton_iters)
+        Told = ((r[0], r[1], r[2]), (r[3], r[4], r[5]), (r[6], r[7], r[8]))
+        told = (r[9], r[10], r[11])
+        Rn = _s_matmul(R, Told)
+        Rt = _s_matvec(R, told)
+        tn = tuple(Rt[a] + t[a] for a in range(3))
+        # degenerate-iteration guard: Procrustes needs >= 3 correspondences
+        ok = m[3][3] >= 3.0
+        pose = ([torch.where(ok, Rn[a][c], Told[a][c])
+                 for a in range(3) for c in range(3)]
+                + [torch.where(ok, tn[a], told[a]) for a in range(3)])
+    return torch.stack(pose, dim=1)
+
+
+# ---------------------------------------------------------------------------
+# the wrapper
+# ---------------------------------------------------------------------------
+
+def icp_mega(dbt5, lut, scal, src3, spen, centers, iters: int,
+             thresh2: float, block: int, wb: int, query_tile: int,
+             newton_iters: int = 6) -> torch.Tensor:
+    """K4 wrapper -> pose [B,12]. CPU tensors take the plain version; CUDA
+    tensors launch the kernel (one CTA per pair) or raise."""
+    b, five, np_ = dbt5.shape
+    mp = src3.shape[2]
+    if (five != 5 or np_ % block or mp % query_tile or not 1 <= wb <= np_ // block
+            or src3.shape != (b, 3, mp) or spen.shape != (b, mp)
+            or lut.shape != (b, LUT_BINS + 1) or scal.shape != (b, 16)
+            or centers.shape != (b, 3 * (mp // query_tile))):
+        raise ValueError("icp_mega: bad shapes or tiling")
+    if dbt5.device.type == "cpu":
+        return icp_mega_plain(dbt5, lut, scal, src3, spen, centers, iters,
+                              thresh2, block, wb, query_tile, newton_iters)
+    f32, i32 = torch.float32, torch.int32
+    kernels.require_cuda("icp_mega", dbt5, src3, spen, lut, centers, scal,
+                         dtypes=(f32, f32, f32, i32, f32, f32))
+    out = torch.empty((b, 16), dtype=f32, device=dbt5.device)
+    fn = kernels.entry("icp_mega.cu", "pct_icp_mega", n_ptr=7, n_int=9,
+                       n_float=1)
+    kernels.check(fn(dbt5.data_ptr(), src3.data_ptr(), spen.data_ptr(),
+                     lut.data_ptr(), centers.data_ptr(), scal.data_ptr(),
+                     out.data_ptr(), b, np_, mp, block, wb, query_tile,
+                     iters, newton_iters, LUT_BINS + 1, thresh2,
+                     kernels.stream_ptr(dbt5.device)), "icp_mega")
+    icp_mega.launches += 1
+    return out[:, :12]
+
+
+icp_mega.launches = 0
+
+
+def icp_mega_batch(dbt5: torch.Tensor, lut: torch.Tensor,
+                   lo: torch.Tensor, hi: torch.Tensor, axis: torch.Tensor,
+                   src3: torch.Tensor, spen: torch.Tensor,
+                   centers: torch.Tensor, init_T: torch.Tensor,
+                   iters: int = 30, dist_thresh: float = 5.0,
+                   block: int = 512, window_blocks: int = 4,
+                   query_tile: int = 256,
+                   newton_iters: int = 6) -> torch.Tensor:
+    """Batched whole-loop ICP, one launch for the whole pair sweep.
+
+    Layouts (leading B on everything, as the reference): dbt5 [B,5,Np]
+    packed db (x, y, z, pen2, ones), lut [B,1,LUT_BINS+1], lo/hi [B]
+    band-axis range, axis [B] sort axis, src3 [B,3,Mp], spen [B,1,Mp],
+    centers [B,1,3*ntiles], init_T [B,4,4]. Returns [B,4,4]."""
+    bsz = src3.shape[0]
+    scal = torch.cat([
+        init_T[:, :3, :3].reshape(bsz, 9), init_T[:, :3, 3],
+        lo[:, None], hi[:, None], axis.float()[:, None],
+        torch.zeros((bsz, 1), dtype=torch.float32, device=src3.device)],
+        dim=1).float().contiguous()
+    nb = dbt5.shape[2] // block
+    wb = min(window_blocks, nb)
+    pose = icp_mega(dbt5.float().contiguous(),
+                    lut.reshape(bsz, -1).int().contiguous(), scal,
+                    src3.float().contiguous(),
+                    spen.reshape(bsz, -1).float().contiguous(),
+                    centers.reshape(bsz, -1).float().contiguous(),
+                    iters, float(dist_thresh) ** 2, block, wb, query_tile,
+                    newton_iters)
+    T = torch.eye(4, dtype=torch.float32, device=src3.device).repeat(bsz, 1, 1)
+    T[:, :3, :3] = pose[:, :9].reshape(bsz, 3, 3)
+    T[:, :3, 3] = pose[:, 9:12]
+    return T

@@ -34,14 +34,18 @@ setup(
     version="0.1.0",
     description=("TPU-native point-cloud processing framework "
                  "(JAX/XLA/Pallas)"),
-    packages=find_packages(include=["pctpu", "pctpu.*"]),
-    package_data={"pctpu.native": ["*.cpp", "*.so"]},
+    packages=find_packages(include=["pctpu", "pctpu.*",
+                                    "pctpu_torch", "pctpu_torch.*"]),
+    # pctpu_torch's CUDA kernels are compiled by nvcc at first use
+    package_data={"pctpu.native": ["*.cpp", "*.so"],
+                  "pctpu_torch": ["csrc/*.cu"]},
     python_requires=">=3.10",
     install_requires=[
         "jax", "flax", "optax", "orbax-checkpoint", "numpy", "scipy",
     ],
     extras_require={
         "full": ["scikit-learn", "h5py", "pandas", "matplotlib"],
+        "torch": ["torch"],     # the PyTorch/CUDA port, pctpu_torch
     },
     cmdclass={"build_py": BuildWithNative},
 )
