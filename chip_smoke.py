@@ -1,22 +1,38 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (`pctpu_torch`) on one NVIDIA GPU.
 
-Drives the port's main path, `register_pairs` (voxel downsample -> radius
-normals -> fused FPFH -> mutual matching -> batched RANSAC -> voxel ICP ->
-exact refine -> stats), at the full-pipeline shapes of `bench.py`
-(16 pairs x 16,384 points, 35 degree rotation, default config), and holds
-each hand-written kernel against its plain PyTorch version:
+Drives the port's paths at the shapes of `bench.py` and holds each
+hand-written kernel against its plain PyTorch version:
 
+  P1 `register_pairs`: 16 pairs x 16,384 points at 35 degrees, default
+     config (voxel -> radius normals -> fused FPFH -> mutual matching ->
+     batched RANSAC -> voxel ICP -> exact refine -> stats): K1-K4;
+  P2 workload 1: ICP of one 16,384-point pair, 47 windowed + 3 exact
+     iterations (`icp_fixed_iters_banded_mega`): kernel 5;
+  P3 workload 4: the whole 124,668-point scan, 48 windowed iterations of
+     kernel 5, then 3 exact iterations (`icp_refine_exact`, K1);
+  P4 workload 2: 16 pairs x 4,096 points (`batched_icp_mega`): K4;
+  P5 the three banded ICP loops on workload 1's pair, 30 iterations each:
+     K6 `nearest_banded`, K7 `icp_moments_banded`, K8
+     `icp_moments_banded_v2`;
+  P6 `register_pair` on one 35 degree pair of P1, default config:
+     kernel 5 and K1.
+
+Every path takes its clouds from one scan: a synthetic 124,668-point
+ray-cast LiDAR scan made from --seed, or the velodyne file given by --scan.
+
+Phases:
   1. environment: versions, the card's name and power limit, precision
      checks, the kernels' build (nvcc, all sources at once);
-  2. a warm-up run of the main path that records each kernel's inputs;
-     on those inputs each kernel against its plain version, with the
-     stated tolerance, and timed (CUDA events) beside its bound;
-  3. the main path, with every launch counter set to 0 just before and
-     read just after: every kernel must have launched; every pair must
-     pass RTE < 2 m and RRE < 5 deg; a small input must give the same
-     pose through the kernels and through the plain versions (CPU);
-     then pairs/s (CUDA events, after the warm-up);
+  2. each path, with every launch counter set to 0 just before it and
+     read just after: each must launch exactly its kernels; its result
+     must pass its gate (RTE < 2 m and RRE < 5 deg, workload 4 also
+     RTE < 0.05 m); its speed (CUDA events);
+  3. on the inputs each path gave its kernels (recorded in a run before
+     the counted one, or in the counted run itself), each kernel against
+     its plain version with the stated tolerance, timed beside its bound;
+     and each ICP path run once more with its kernels swapped for their
+     plain versions: the poses agree within 1e-4;
   4. one JSON line of per-kernel numbers, the card's line, and last the
      line {"ok": true, "device": {...}}.
 
@@ -27,6 +43,7 @@ Full results (profile included) are also written to build/chip_smoke.json.
     python3 chip_smoke.py [--seed 0] [--scan velodyne.bin]
 """
 import argparse
+import contextlib
 import json
 import subprocess
 import sys
@@ -40,47 +57,77 @@ FP32_PEAK = 67e12      # H100 SXM FP32 CUDA-core FLOP/s (NVIDIA data sheet)
 HBM_RATE = 3.35e12     # H100 SXM HBM3 bytes/s (NVIDIA data sheet)
 RTE_BOUND, RRE_BOUND = 2.0, 5.0     # bench.py:51-52 (evaluate_rt.py:16-18)
 BATCH, N_POINTS, ROT_DEG = 16, 16384, 35.0
+SCAN_POINTS = 124_668               # the reference's KITTI scan (bench.py)
+W1 = dict(coarse_iters=47, polish_iters=3, dist_thresh=5.0, block=1024,
+          window_blocks=1, query_tile=1024)             # bench.py:44-50
+W2_BATCH, W2_POINTS = 16, 4096                          # bench.py:54-56
+W2 = dict(coarse_iters=28, polish_iters=2, dist_thresh=5.0, block=512,
+          window_blocks=1, query_tile=512)              # bench.py:187-189
+BANDED = dict(iters=30, dist_thresh=5.0, block=2048, window_blocks=2,
+              query_tile=512)
+KERNELS = ("nn1", "spfh", "wsum", "icp_mega_batch", "icp_mega",
+           "nearest_banded", "icp_moments_banded", "icp_moments_banded_v2")
 
 
 # ---------------------------------------------------------------------------
 # data
 # ---------------------------------------------------------------------------
 
-def lidar_scene(rng, n=120_000):
-    """A structured LiDAR-like scene over about +-40 m: undulating ground,
-    box buildings, walls and pillars (points spread by surface area)."""
-    parts = []
-    g = rng.uniform(-40, 40, (n // 2, 2))
-    z = (0.3 * np.sin(g[:, 0] / 7.0) * np.cos(g[:, 1] / 9.0)
-         + rng.normal(scale=0.03, size=len(g)))
-    parts.append(np.column_stack([g, z]))
-    per = n // 2 // 40
-    for _ in range(14):                         # boxes: 4 side walls + roof
-        c = rng.uniform(-35, 35, 2)
-        w = rng.uniform(2, 8, 2)
-        h = rng.uniform(3, 10)
-        f = rng.uniform(-1, 1, (per * 2, 3))
-        side = rng.integers(0, 5, len(f))
-        x = np.where(side == 0, 1.0, np.where(side == 1, -1.0, f[:, 0]))
-        y = np.where(side == 2, 1.0, np.where(side == 3, -1.0, f[:, 1]))
-        zz = np.where(side == 4, h, h * (f[:, 2] + 1) / 2)
-        parts.append(np.column_stack([c[0] + w[0] * x, c[1] + w[1] * y, zz]))
-    for _ in range(4):                          # long thin walls
-        a = rng.uniform(-35, 35, 2)
-        d = rng.normal(size=2)
-        d /= np.linalg.norm(d)
-        s = rng.uniform(0, rng.uniform(10, 25), per)
-        parts.append(np.column_stack([a[0] + s * d[0], a[1] + s * d[1],
-                                      rng.uniform(0, 3, per)]))
-    for _ in range(24):                         # pillars / poles
-        c = rng.uniform(-38, 38, 2)
-        r = rng.uniform(0.2, 0.6)
-        t = rng.uniform(0, 2 * np.pi, per // 3)
-        parts.append(np.column_stack([c[0] + r * np.cos(t),
-                                      c[1] + r * np.sin(t),
-                                      rng.uniform(0, rng.uniform(4, 9),
-                                                  per // 3)]))
-    return np.concatenate(parts).astype(np.float32)
+def lidar_scan(rng, n_points=SCAN_POINTS, height=1.73, max_range=80.0):
+    """One scan of a street scene by a spinning 64-beam LiDAR (the
+    elevations of a Velodyne HDL-64E, -24.8..+2 deg, 0.09 deg azimuth
+    steps), the stand-in for the reference's KITTI scan: rays from 1.73 m
+    above flat ground cast against the ground, yawed box buildings and
+    cars, and poles; the nearest hit within 80 m with 1 cm range noise;
+    `n_points` of the hits drawn without replacement. Points crowd near
+    the sensor, as in a real scan."""
+    elev = np.radians(np.linspace(-24.8, 2.0, 64))
+    azim = np.radians(np.arange(0.0, 360.0, 0.09))
+    el, az = np.meshgrid(elev, azim, indexing="ij")
+    d = np.stack([np.cos(el) * np.cos(az), np.cos(el) * np.sin(az),
+                  np.sin(el)], axis=-1).reshape(-1, 3)
+    o = np.array([0.0, 0.0, height])
+    t = np.full(len(d), np.inf)
+    down = d[:, 2] < -1e-6
+    t[down] = height / -d[down, 2]                      # the ground, z = 0
+    boxes = []
+    for k in range(54):                 # 24 buildings, then 30 cars
+        c = rng.uniform(-60, 60, 2) if k < 24 else rng.uniform(-35, 35, 2)
+        near = 12.0 if k < 24 else 4.0  # keep the sensor outside
+        if np.hypot(*c) < near:
+            c *= near / np.hypot(*c)
+        size = ((rng.uniform(3, 10, 2), rng.uniform(4, 12)) if k < 24
+                else (np.array([2.2, 0.9]), 1.5))
+        boxes.append((c, size[0], size[1], rng.uniform(0, np.pi)))
+    for c, half, h, yaw in boxes:       # slab test in the box's frame
+        cs_, sn = np.cos(yaw), np.sin(yaw)
+        ox, oy = o[0] - c[0], o[1] - c[1]
+        lo = np.array([cs_ * ox + sn * oy, -sn * ox + cs_ * oy, o[2]])
+        ld = np.stack([cs_ * d[:, 0] + sn * d[:, 1],
+                       -sn * d[:, 0] + cs_ * d[:, 1], d[:, 2]], 1)
+        with np.errstate(divide="ignore", invalid="ignore"):
+            t1 = (np.array([-half[0], -half[1], 0.0]) - lo) / ld
+            t2 = (np.array([half[0], half[1], h]) - lo) / ld
+        tn = np.nanmax(np.minimum(t1, t2), axis=1)
+        tf = np.nanmin(np.maximum(t1, t2), axis=1)
+        t = np.where((tn <= tf) & (tn > 0) & (tn < t), tn, t)
+    for _ in range(40):                 # poles
+        c = rng.uniform(-40, 40, 2)
+        r, h = rng.uniform(0.15, 0.4), rng.uniform(4, 9)
+        px, py = o[0] - c[0], o[1] - c[1]
+        a = d[:, 0] ** 2 + d[:, 1] ** 2
+        b = 2 * (px * d[:, 0] + py * d[:, 1])
+        disc = b * b - 4 * a * (px * px + py * py - r * r)
+        with np.errstate(invalid="ignore", divide="ignore"):
+            tc = (-b - np.sqrt(disc)) / (2 * a)
+        z = o[2] + tc * d[:, 2]
+        hit = (disc > 0) & (tc > 0) & (z >= 0) & (z <= h) & (tc < t)
+        t = np.where(hit, tc, t)
+    keep = t <= max_range
+    rng_m = t[keep] + rng.normal(scale=0.01, size=int(keep.sum()))
+    pts = o + d[keep] * rng_m[:, None]
+    sel = rng.choice(len(pts), n_points, replace=False)
+    return pts[sel].astype(np.float32)
 
 
 def make_pairs(scan, rng, batch, n_points, rot_deg):
@@ -105,8 +152,20 @@ def make_pairs(scan, rng, batch, n_points, rot_deg):
     return np.stack(srcs), np.stack(dsts), np.stack(gts)
 
 
+def perturb(pts, rng, rotvec, trans, noise=0.01):
+    """bench.py:63-72: dst = R pts + t + noise; returns (dst, T)."""
+    from scipy.spatial.transform import Rotation
+    R = Rotation.from_rotvec(rotvec).as_matrix().astype(np.float32)
+    t = np.asarray(trans, np.float32)
+    dst = (pts @ R.T + t + rng.normal(scale=noise, size=pts.shape)).astype(
+        np.float32)
+    T = np.eye(4, dtype=np.float32)
+    T[:3, :3], T[:3, 3] = R, t
+    return dst, T
+
+
 # ---------------------------------------------------------------------------
-# timing and bounds
+# timing, bounds, recording
 # ---------------------------------------------------------------------------
 
 def cuda_ms(fn, reps=5, warmup=1):
@@ -131,13 +190,25 @@ def bound(nbytes, ops):
 
 
 def nbytes(*tensors):
-    return sum(t.numel() * t.element_size() for t in tensors)
+    return sum(t.numel() * t.element_size() for t in tensors
+               if hasattr(t, "numel"))
+
+
+@contextlib.contextmanager
+def swapped(module, name, fn):
+    """Bind `name` in `module` to `fn` for the duration."""
+    old = getattr(module, name)
+    setattr(module, name, fn)
+    try:
+        yield
+    finally:
+        setattr(module, name, old)
 
 
 class Recorder:
-    """Stands in for a kernel wrapper in its module while a run records
-    the inputs of each call. A wrapper counts its launches on the name it
-    is bound to in its module, so `launches` passes through to it."""
+    """Stands in for a function in its module while a run records the
+    inputs of each call. A kernel wrapper counts its launches on the name
+    it is bound to in its module, so `launches` passes through to it."""
 
     def __init__(self, module, name):
         self.module, self.name = module, name
@@ -164,10 +235,6 @@ class Recorder:
         setattr(self.module, self.name, self.fn)
 
 
-# ---------------------------------------------------------------------------
-# phases
-# ---------------------------------------------------------------------------
-
 def need(ok, *what):
     """A check that holds under `python -O` too."""
     if not ok:
@@ -182,9 +249,47 @@ def gpu_line():
     return out[0]
 
 
-def check_nn1(mods, args, torch):
+def gate(name, T, gt, se3, torch, rte_max=RTE_BOUND):
+    """RTE < rte_max and RRE < 5 deg for every pose of T [...,4,4]."""
+    need(torch.isfinite(T).all(), name, "non-finite pose")
+    rte, rre = se3.pose_diff_rte_rre(T.cpu().reshape(-1, 4, 4),
+                                     torch.as_tensor(gt).reshape(-1, 4, 4))
+    need(bool((rte < rte_max).all()) and bool((rre < RRE_BOUND).all()),
+         name, rte.tolist(), rre.tolist())
+    return float(rte.max()), float(rre.max())
+
+
+class Paths:
+    """Runs each path with every launch counter set to 0 just before it
+    and read just after, and checks that it launched exactly `expect`."""
+
+    def __init__(self, counted, torch):
+        self.counted, self.torch = counted, torch
+        self.launches = {}
+
+    def run(self, name, fn, expect):
+        for k in self.counted.values():
+            k.launches = 0
+        out = fn()
+        self.torch.cuda.synchronize()
+        got = {k: f.launches for k, f in self.counted.items()}
+        want = {k: expect.get(k, 0) for k in self.counted}
+        need(got == want, name, got, want)
+        self.launches[name] = {k: v for k, v in got.items() if v}
+        return out
+
+    def total(self, kernel):
+        return sum(p.get(kernel, 0) for p in self.launches.values())
+
+
+# ---------------------------------------------------------------------------
+# kernel against plain version
+# ---------------------------------------------------------------------------
+
+def check_nn1(mods, args, torch, timed=True):
     """K1 vs plain: d2 rtol 1e-6; idx equal unless the two choices are a
-    near-tie (their distances within 1e-5 relative)."""
+    near-tie (their distances within 1e-5 relative). `timed` adds the
+    kernel's, the plain version's and the library's times and the bound."""
     nn = mods["pallas_nn"]
     q, db, pen = args
     d2k, ik = nn.nn1(q, db, pen)
@@ -201,14 +306,16 @@ def check_nn1(mods, args, torch):
     err = float((d2k - d2p).abs().max())
     b_, m, _ = q.shape
     n = db.shape[1]
+    detail = (f"{b_}x{m} queries vs {n} db, {int(diff.sum())} near-tie idx "
+              "differences")
+    if not timed:
+        return dict(max_abs_err=err, detail=detail)
     ms = cuda_ms(lambda: nn.nn1(q, db, pen), reps=20)
     plain = cuda_ms(lambda: nn.nearest_plain(q, db, pen), reps=3)
     lib = cuda_ms(lambda: torch.cdist(q, db).square().min(dim=2), reps=5)
     bms, by = bound(nbytes(q, db, pen) + b_ * m * 8, 8.0 * b_ * m * n)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
-                bound_by=by, library_ms=lib,
-                detail=f"{b_}x{m} queries vs {n} db, {int(diff.sum())} "
-                       "near-tie idx differences")
+                bound_by=by, library_ms=lib, detail=detail)
 
 
 def _flip_ok(k, p, name):
@@ -265,45 +372,99 @@ def fpfh_ops(mods, spfh_calls, res):
     return within
 
 
-def check_icp(mods, calls, torch):
-    """K4 vs plain on the main path's inputs (the voxel stage and the
-    exact refine), and on the voxel stage's inputs re-tiled so the LUT
-    window path runs (window_blocks < nb): T within 1e-4."""
-    m = mods["pallas_icp_mega"]
+def mega_work(args):
+    """(ops, bytes) of one K4 / kernel-5 launch: ~8 flops per (query,
+    window column) pair and iteration (the d2 dot: 3 mul + 3 add, the
+    compare, the tie update); each input read once, the pose written."""
+    b_, _, mp = args[3].shape
+    return 8.0 * b_ * args[6] * mp * args[9] * args[8], nbytes(*args[:6]) \
+        + b_ * 64
+
+
+def check_mega(m, calls, torch, retile=False):
+    """K4 / kernel 5 (`_launch_icp_mega`) vs `icp_mega_plain` on recorded
+    launches: the pose within 1e-4. `retile` adds the first launch's
+    inputs re-tiled so the LUT window path runs (2 of the blocks)."""
     runs = list(calls)
-    (dbt5, lut, scal, src3, spen, cen, iters, th2, block, wb, tq, newton) = \
-        calls[0]
-    tq_w, block_w = 512, 512
-    cen_w = src3[:, :, tq_w // 2::tq_w].transpose(1, 2).reshape(
-        src3.shape[0], -1).contiguous()
-    runs.append((dbt5, lut, scal, src3, spen, cen_w, iters, th2, block_w, 2,
-                 tq_w, newton))
-    out = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, ops=0.0, bytes=0,
-               window_path_err=None, per_launch_ms=[])
+    if retile:
+        (dbt5, lut, scal, src3, spen, cen, iters, th2, block, wb, tq,
+         newton) = calls[0]
+        tq_w, block_w = 512, 512
+        cen_w = src3[:, :, tq_w // 2::tq_w].transpose(1, 2).reshape(
+            src3.shape[0], -1).contiguous()
+        runs.append((dbt5, lut, scal, src3, spen, cen_w, iters, th2, block_w,
+                     2, tq_w, newton))
+    errs = []
     for k, args in enumerate(runs):
-        pk, pp = m.icp_mega(*args), m.icp_mega_plain(*args)
+        pk, pp = m._launch_icp_mega(*args), m.icp_mega_plain(*args)
         torch.cuda.synchronize()
-        err = float((pk - pp).abs().max())
-        need(err <= 1e-4, ("icp_mega", k, err))
-        if k == len(runs) - 1:
-            out["window_path_err"] = err
-            continue
-        out["max_abs_err"] = max(out["max_abs_err"], err)
-        b_, _, mp = args[3].shape
-        ms = cuda_ms(lambda a=args: m.icp_mega(*a), reps=3)
-        out["ms"] += ms
-        out["per_launch_ms"].append(ms)
-        out["plain_ms"] += cuda_ms(lambda a=args: m.icp_mega_plain(*a),
-                                   reps=1)
-        # ~8 flops per (query, window column) pair and iteration: the
-        # d2 dot (3 mul + 3 add), the compare and the tie update
-        out["ops"] += 8.0 * b_ * args[6] * mp * args[9] * args[8]
-        out["bytes"] += nbytes(*args[:6]) + b_ * 64
+        errs.append(float((pk - pp).abs().max()))
+        need(errs[-1] <= 1e-4, ("icp_mega", k, errs[-1]))
+    return errs
+
+
+def time_mega(m, calls):
+    """Kernel, plain and bound time of the recorded launches together."""
+    ms = cuda_ms(lambda: [m._launch_icp_mega(*a) for a in calls], reps=3)
+    plain = cuda_ms(lambda: [m.icp_mega_plain(*a) for a in calls], reps=1,
+                    warmup=0)
+    ops = sum(mega_work(a)[0] for a in calls)
+    byt = sum(mega_work(a)[1] for a in calls)
+    bms, by = bound(byt, ops)
+    return dict(ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
+                per_launch_ms=[cuda_ms(lambda a=a: m._launch_icp_mega(*a),
+                                       reps=2) for a in calls])
+
+
+def check_banded(b, calls, torch):
+    """K6, K7, K8 vs plain on every recorded launch of P5. K6: d2 and idx
+    equal. K7, K8: the moments rounded to [4,4], max |diff| <= 1e-6 of
+    max |m44| (f64 per-tile sums in another order; rounded once)."""
+    out = {}
+    for name, launch, plain in (
+            ("nearest_banded", b._launch_nearest_banded,
+             b.nearest_banded_plain),
+            ("icp_moments_banded", b._launch_icp_moments_banded,
+             b.icp_moments_banded_plain),
+            ("icp_moments_banded_v2", b._launch_icp_moments_banded_v2,
+             b.icp_moments_banded_v2_plain)):
+        err = 0.0
+        for args in calls[name]:
+            k, p = launch(*args), plain(*args)
+            torch.cuda.synchronize()
+            if name == "nearest_banded":
+                need(torch.equal(k[0], p[0]) and torch.equal(k[1], p[1]),
+                     name)
+            else:
+                mk, mp_ = b._sum_partials(k), b._sum_partials(p)
+                rel = float((mk - mp_).abs().max() / mp_.abs().max())
+                need(rel <= 1e-6, name, rel)
+                err = max(err, float((mk - mp_).abs().max()))
+        cl = calls[name]
+        ms = cuda_ms(lambda cl=cl, f=launch: [f(*a) for a in cl], reps=3)
+        plain_ms = cuda_ms(lambda cl=cl, f=plain: [f(*a) for a in cl],
+                           reps=1, warmup=0)
+        ops = byt = 0.0
+        for a in cl:
+            if name == "nearest_banded":
+                q, dbt, pen, off, block, wb, tq = a
+                mp_, flops = q.shape[0], 10.0   # 3 sub, 3 mul, 3 add, cmp
+                byt += nbytes(q, dbt, pen, off) + mp_ * 8
+            else:
+                block, wb, tq = a[-4], a[-3], a[-2]
+                mp_ = (a[0].shape[0] if name == "icp_moments_banded"
+                       else a[3].shape[1])
+                flops = 8.0                     # 4 mul, 2 add, sub, cmp
+                byt += nbytes(*a[:-4]) + mp_ // tq * 128
+            ops += flops * mp_ * wb * block
+        bms, by = bound(byt, ops)
+        out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         bound_ms=bms, bound_by=by, library_ms=None)
     return out
 
 
-def profile(run, torch, top=12):
-    """Device time by kernel over one main-path call (torch.profiler), and
+def profile(name, fn, torch, top=12):
+    """Device time by kernel over one call of a path (torch.profiler), and
     the device's busy share of the call's wall time. Returns a dict, or
     {"note": ...} when the profiler saw no device time."""
     from torch.profiler import ProfilerActivity
@@ -311,7 +472,7 @@ def profile(run, torch, top=12):
                                             ProfilerActivity.CUDA],
                                 acc_events=True) as prof:
         t0 = time.perf_counter()
-        run(2)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = []
@@ -330,8 +491,8 @@ def profile(run, torch, top=12):
         return {"note": "the profiler recorded no device time"}
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
-    print(f"profile of one call (profiler on): wall {wall_ms:.1f} ms, device busy "
-          f"{busy:.1f} ms ({100 * busy / wall_ms:.0f}%)")
+    print(f"   profile of one {name} call (profiler on): wall {wall_ms:.1f} "
+          f"ms, device busy {busy:.1f} ms ({100 * busy / wall_ms:.0f}%)")
     for ms, n, key in rows[:top]:
         print(f"  {ms:9.3f} ms  x{n:<4d} {key[:90]}")
     return {"wall_ms": wall_ms, "device_busy_ms": busy,
@@ -339,12 +500,17 @@ def profile(run, torch, top=12):
                           for ms, n, key in rows[:40]]}
 
 
+# ---------------------------------------------------------------------------
+# main
+# ---------------------------------------------------------------------------
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--scan", default=None,
-                    help="KITTI velodyne .bin to sample pairs from "
-                         "(default: a synthetic LiDAR-like scene)")
+                    help="KITTI velodyne .bin to take every path's clouds "
+                         "from (default: a synthetic 124,668-point scan "
+                         "from --seed)")
     args = ap.parse_args(argv)
 
     import torch
@@ -355,11 +521,12 @@ def main(argv=None):
         import pctpu_torch  # noqa: F401
         from pctpu_torch import device as pdevice
         from pctpu_torch import kernels
-        from pctpu_torch.core import se3
+        from pctpu_torch.core import io, se3
         from pctpu_torch.core.cloud import PointCloud
         from pctpu_torch.features import pallas_fpfh
-        from pctpu_torch.ops import pallas_icp_mega, pallas_nn
-        from pctpu_torch.register import pipeline
+        from pctpu_torch.ops import pallas_banded, pallas_icp_mega, pallas_nn
+        from pctpu_torch.parallel import pair_sweep
+        from pctpu_torch.register import icp, pipeline
         from pctpu_torch.register.ransac import generator_sampler
     except ImportError as e:
         print(f"chip_smoke: the pctpu_torch package is missing ({e}); run "
@@ -367,9 +534,15 @@ def main(argv=None):
         return 2
     mods = dict(pallas_nn=pallas_nn, pallas_fpfh=pallas_fpfh,
                 pallas_icp_mega=pallas_icp_mega)
+    mega, banded = pallas_icp_mega, pallas_banded
     counted = {"nn1": pallas_nn.nn1, "spfh": pallas_fpfh.spfh,
-               "wsum": pallas_fpfh.wsum, "icp_mega": pallas_icp_mega.icp_mega}
-    report = {}
+               "wsum": pallas_fpfh.wsum, "icp_mega_batch": mega.icp_mega_batch,
+               "icp_mega": mega.icp_mega,
+               "nearest_banded": banded.nearest_banded,
+               "icp_moments_banded": banded.icp_moments_banded,
+               "icp_moments_banded_v2": banded.icp_moments_banded_v2}
+    paths = Paths(counted, torch)
+    report, rows, metrics = {}, {}, {}
 
     # ---- 1. environment --------------------------------------------------
     t_all = time.perf_counter()
@@ -387,65 +560,36 @@ def main(argv=None):
 
     # ---- data --------------------------------------------------------------
     rng = np.random.default_rng(args.seed)
-    if args.scan:
-        scan = np.fromfile(args.scan, np.float32).reshape(-1, 4)[:, :3]
-    else:
-        scan = lidar_scene(rng)
-    src_np, dst_np, gts = make_pairs(scan, rng, BATCH, N_POINTS, ROT_DEG)
+    full = (io.read_velodyne_bin(args.scan) if args.scan
+            else lidar_scan(np.random.default_rng([args.seed, 9])))
+    src_np, dst_np, gts = make_pairs(full, rng, BATCH, N_POINTS, ROT_DEG)
     mask = torch.ones((BATCH, N_POINTS), dtype=torch.bool, device=dev)
     src = PointCloud(torch.from_numpy(src_np).to(dev), mask)
     dst = PointCloud(torch.from_numpy(dst_np).to(dev), mask)
     cfg = pipeline.RegistrationConfig()
 
+    def on_dev(*xs):
+        return [torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in xs]
+
+    # ---- P1 register_pairs (K1-K4) ---------------------------------------
     def run(seed=0):
         gen = torch.Generator(device=dev).manual_seed(seed)
         return pipeline.register_pairs(src, dst, cfg=cfg, generator=gen)
 
-    # ---- 2. warm-up run recording each kernel's inputs; kernel vs plain ---
     with Recorder(pallas_nn, "nn1") as r_nn, \
             Recorder(pallas_fpfh, "spfh") as r_spfh, \
             Recorder(pallas_fpfh, "wsum") as r_wsum, \
-            Recorder(pallas_icp_mega, "icp_mega") as r_icp:
+            Recorder(mega, "_launch_icp_mega") as r_k4:
         run()
         torch.cuda.synchronize()
-    rows = {}
-    rows["nn1"] = check_nn1(mods, r_nn.calls[0], torch)
-    fp = check_fpfh(mods, r_spfh.calls, r_wsum.calls, torch)
-    within = fpfh_ops(mods, r_spfh.calls, fp)
-    for name in ("spfh", "wsum"):
-        bms, by = bound(fp[name]["bytes"], fp[name]["ops"])
-        rows[name] = dict(max_abs_err=fp[name]["max_abs_err"],
-                          ms=fp[name]["ms"], plain_ms=fp[name]["plain_ms"],
-                          bound_ms=bms, bound_by=by, library_ms=None)
-    icp = check_icp(mods, r_icp.calls, torch)
-    bms, by = bound(icp["bytes"], icp["ops"])
-    rows["icp_mega"] = dict(max_abs_err=icp["max_abs_err"], ms=icp["ms"],
-                            plain_ms=icp["plain_ms"], bound_ms=bms,
-                            bound_by=by, library_ms=None,
-                            window_path_err=icp["window_path_err"],
-                            per_launch_ms=icp["per_launch_ms"])
-    report["fpfh_pairs"] = {k: fp[k]["visited"] for k in ("spfh", "wsum")}
-    report["fpfh_within"] = within
-    print("kernel vs plain: all within tolerance")
-
-    # ---- 3. main path: counted run, accuracy, small-input parity, speed --
-    for fn in counted.values():
-        fn.launches = 0
-    out = run()
-    torch.cuda.synchronize()
-    launches = {k: fn.launches for k, fn in counted.items()}
-    expected = {"nn1": 1, "spfh": 2, "wsum": 2, "icp_mega": 2}
-    need(launches == expected, (launches, expected))
-    need(out.T.shape == (BATCH, 4, 4) and torch.isfinite(out.T).all())
-    rte, rre = se3.pose_diff_rte_rre(out.T.cpu(), torch.from_numpy(gts))
-    worst = int(torch.argmax(rte / RTE_BOUND + rre / RRE_BOUND))
-    print(f"register_pairs {BATCH}x{N_POINTS} @ {ROT_DEG} deg: worst pair "
-          f"{worst} RTE {float(rte[worst]):.4f} m RRE "
-          f"{float(rre[worst]):.4f} deg; max RTE {float(rte.max()):.4f} m, "
-          f"max RRE {float(rre.max()):.4f} deg; matches "
+    out = paths.run("register_pairs", run,
+                    {"nn1": 1, "spfh": 2, "wsum": 2, "icp_mega_batch": 2})
+    need(out.T.shape == (BATCH, 4, 4))
+    rte, rre = gate("register_pairs", out.T, gts, se3, torch)
+    print(f"P1 register_pairs {BATCH}x{N_POINTS} @ {ROT_DEG} deg: max RTE "
+          f"{rte:.4f} m, max RRE {rre:.4f} deg; matches "
           f"{out.num_matches.min().item()}..{out.num_matches.max().item()}")
-    need(bool((rte < RTE_BOUND).all()) and bool((rre < RRE_BOUND).all()),
-         (rte.tolist(), rre.tolist()))
+    metrics["register_pairs"] = dict(worst_rte=rte, worst_rre=rre)
 
     # the same small input through the kernels and through the plain
     # versions (device='cpu'): the poses agree
@@ -459,20 +603,227 @@ def main(argv=None):
     on_cpu = pipeline.register_pairs(small[0].to("cpu"), small[1].to("cpu"),
                                      cfg=cfg, sampler=sampler, device="cpu")
     drte, drre = se3.pose_diff_rte_rre(on_card.T.cpu(), on_cpu.T)
-    print(f"small input, kernels vs plain: max dRTE {float(drte.max()):.2e} m"
-          f", max dRRE {float(drre.max()):.2e} deg")
+    print(f"   small input, kernels vs plain: max dRTE "
+          f"{float(drte.max()):.2e} m, max dRRE {float(drre.max()):.2e} deg")
     # FPFH bins may flip between kernel and plain (rsqrt, sum order), so
     # matches and RANSAC may differ slightly; ICP lands on the same pose
     need(float(drte.max()) < 0.05 and float(drre.max()) < 0.5)
 
     pair_ms = cuda_ms(lambda: run(1), reps=3, warmup=1)
     pairs_s = BATCH / (pair_ms / 1e3)
-    print(f"register_pairs: {pair_ms:.2f} ms per {BATCH}-pair batch = "
-          f"{pairs_s:.1f} pairs/s")
+    print(f"   {pair_ms:.2f} ms per {BATCH}-pair batch = {pairs_s:.1f} "
+          "pairs/s")
+    metrics["register_pairs"].update(batch_ms=pair_ms, pairs_per_s=pairs_s)
+    report["profile"] = profile("register_pairs", lambda: run(2), torch)
 
-    report["profile"] = profile(run, torch)
+    rows["nn1"] = check_nn1(mods, r_nn.calls[0], torch)
+    fp = check_fpfh(mods, r_spfh.calls, r_wsum.calls, torch)
+    report["fpfh_within"] = fpfh_ops(mods, r_spfh.calls, fp)
+    report["fpfh_pairs"] = {k: fp[k]["visited"] for k in ("spfh", "wsum")}
+    for name in ("spfh", "wsum"):
+        bms, by = bound(fp[name]["bytes"], fp[name]["ops"])
+        rows[name] = dict(max_abs_err=fp[name]["max_abs_err"],
+                          ms=fp[name]["ms"], plain_ms=fp[name]["plain_ms"],
+                          bound_ms=bms, bound_by=by, library_ms=None)
+    errs = check_mega(mega, r_k4.calls, torch, retile=True)
+    rows["icp_mega_batch"] = dict(max_abs_err=max(errs[:-1]),
+                                  window_path_err=errs[-1], library_ms=None,
+                                  **time_mega(mega, r_k4.calls))
 
-    # ---- 4. kernels line, card, result -----------------------------------
+    # ---- P2 workload 1: one 16,384-point pair, kernel 5 ------------------
+    rng1 = np.random.default_rng([args.seed, 1])
+    w1_src = full[rng1.choice(full.shape[0], N_POINTS, replace=False)]
+    w1_dst, w1_gt = perturb(w1_src, rng1, [0.01, 0.02, 0.05],
+                            [0.5, -0.3, 0.1])
+    w1_mask = torch.ones((N_POINTS,), dtype=torch.bool, device=dev)
+    s1, d1 = on_dev(w1_src, w1_dst)
+
+    def w1_run():
+        return icp.icp_fixed_iters_banded_mega(s1, w1_mask, d1, w1_mask,
+                                               **W1)
+    with Recorder(mega, "_launch_icp_mega") as r_k5:
+        w1_run()
+        torch.cuda.synchronize()
+    T1 = paths.run("workload1", w1_run, {"icp_mega": 2})
+    rte, rre = gate("workload1", T1, w1_gt, se3, torch)
+    w1_ms = cuda_ms(w1_run, reps=5)
+    metrics["workload1"] = dict(rte=rte, rre=rre, call_ms=w1_ms,
+                                iters_per_s=50 / (w1_ms / 1e3))
+    print(f"P2 workload 1 ({N_POINTS} pts, 47+3 iters): RTE {rte:.4f} m, "
+          f"RRE {rre:.4f} deg; {w1_ms:.2f} ms per call = "
+          f"{metrics['workload1']['iters_per_s']:.1f} iters/s")
+    report["profile_workload1"] = profile("workload1", w1_run, torch, top=4)
+    with swapped(mega, "_launch_icp_mega", mega.icp_mega_plain):
+        T1p = w1_run()
+    metrics["workload1"]["loop_err_vs_plain"] = float(
+        (T1 - T1p).abs().max())
+    need(metrics["workload1"]["loop_err_vs_plain"] <= 1e-4, "workload1 T")
+
+    # ---- P3 workload 4: the full scene, kernel 5 then the exact polish ---
+    rng4 = np.random.default_rng([args.seed, 4, 1])
+    w4_dst, w4_gt = perturb(full, rng4, [0.01, 0.02, 0.05], [0.5, -0.3, 0.1])
+    s4, d4 = on_dev(full, w4_dst)
+    m4 = torch.ones((full.shape[0],), dtype=torch.bool, device=dev)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+
+    def w4_run():           # bench.py:270-281
+        ev[0].record()
+        T = icp.icp_fixed_iters_banded_mega(
+            s4, m4, d4, m4, coarse_iters=48, polish_iters=0, dist_thresh=5.0,
+            block=2048, window_blocks=2, query_tile=1024)
+        ev[1].record()
+        T = icp.icp_refine_exact(s4, m4, d4, m4, T, iters=1, subsample=16384,
+                                 dist_thresh=5.0)
+        T = icp.icp_refine_exact(s4, m4, d4, m4, T, iters=2, subsample=16384,
+                                 dist_thresh=0.5)
+        ev[2].record()
+        return T
+    with Recorder(mega, "_launch_icp_mega") as r_k5w4, \
+            Recorder(pallas_nn, "nn1") as r_nn_w4:
+        T4 = paths.run("workload4", w4_run, {"icp_mega": 1, "nn1": 3})
+    rte, rre = gate("workload4", T4, w4_gt, se3, torch, rte_max=0.05)
+    w4_ms = ev[0].elapsed_time(ev[2])
+    metrics["workload4"] = dict(
+        points=int(full.shape[0]), rte=rte, rre=rre, call_ms=w4_ms,
+        kernel5_ms=ev[0].elapsed_time(ev[1]),
+        refine_ms=ev[1].elapsed_time(ev[2]), iters_per_s=51 / (w4_ms / 1e3))
+    print(f"P3 workload 4 ({full.shape[0]} pts, 48+3 iters): RTE {rte:.4f} "
+          f"m, RRE {rre:.4f} deg; {w4_ms:.1f} ms per call (kernel 5 "
+          f"{metrics['workload4']['kernel5_ms']:.1f} ms) = "
+          f"{metrics['workload4']['iters_per_s']:.2f} iters/s")
+    # the whole workload with kernel 5 and K1 swapped for their plain
+    # versions: the same pose
+    t0 = time.perf_counter()
+    with swapped(mega, "_launch_icp_mega", mega.icp_mega_plain), \
+            swapped(pallas_nn, "nn1", pallas_nn.nearest_plain):
+        T4p = w4_run()
+    metrics["workload4"].update(
+        loop_err_vs_plain=float((T4 - T4p).abs().max()),
+        plain_call_s=time.perf_counter() - t0)
+    need(metrics["workload4"]["loop_err_vs_plain"] <= 1e-4, "workload4 T",
+         metrics["workload4"]["loop_err_vs_plain"])
+    print(f"   plain versions: T vs kernels "
+          f"{metrics['workload4']['loop_err_vs_plain']:.1e} "
+          f"({metrics['workload4']['plain_call_s']:.1f} s)")
+
+    # ---- P4 workload 2: 16 pairs x 4,096 points, K4 ----------------------
+    rng2 = np.random.default_rng([args.seed, 2])
+    w2 = []
+    for _ in range(W2_BATCH):
+        s_ = full[rng2.choice(full.shape[0], W2_POINTS, replace=False)]
+        d_, g_ = perturb(s_, rng2, rng2.uniform(-0.05, 0.05, 3),
+                         rng2.uniform(-0.5, 0.5, 3))
+        w2.append((s_, d_, g_))
+    s2, d2 = on_dev(np.stack([w[0] for w in w2]), np.stack([w[1] for w in w2]))
+    m2 = torch.ones((W2_BATCH, W2_POINTS), dtype=torch.bool, device=dev)
+
+    def w2_run():
+        return pair_sweep.batched_icp_mega(s2, m2, d2, m2, **W2)
+    with Recorder(mega, "_launch_icp_mega") as r_k4w2:
+        T2 = paths.run("workload2", w2_run, {"icp_mega_batch": 2})
+    rte, rre = gate("workload2", T2, np.stack([w[2] for w in w2]), se3, torch)
+    w2_ms = cuda_ms(w2_run, reps=5)
+    metrics["workload2"] = dict(worst_rte=rte, worst_rre=rre, call_ms=w2_ms,
+                                pairs_per_s=W2_BATCH / (w2_ms / 1e3))
+    print(f"P4 workload 2 ({W2_BATCH}x{W2_POINTS}, 28+2 iters): max RTE "
+          f"{rte:.4f} m, max RRE {rre:.4f} deg; {w2_ms:.2f} ms per call = "
+          f"{metrics['workload2']['pairs_per_s']:.1f} pairs/s")
+    check_mega(mega, r_k4w2.calls, torch)
+    with swapped(mega, "_launch_icp_mega", mega.icp_mega_plain):
+        T2p = w2_run()
+    metrics["workload2"]["loop_err_vs_plain"] = float(
+        (T2 - T2p).abs().max())
+    need(metrics["workload2"]["loop_err_vs_plain"] <= 1e-4, "workload2 T")
+
+    # ---- P5 the banded ICP loops on workload 1's pair (K6, K7, K8) ---------
+    loops = {"nearest_banded": icp.icp_fixed_iters_banded,
+               "icp_moments_banded": icp.icp_fixed_iters_banded_fused,
+               "icp_moments_banded_v2": icp.icp_fixed_iters_banded_fused_v2}
+    launchers = {"nearest_banded": "_launch_nearest_banded",
+                 "icp_moments_banded": "_launch_icp_moments_banded",
+                 "icp_moments_banded_v2": "_launch_icp_moments_banded_v2"}
+    plains = {"nearest_banded": banded.nearest_banded_plain,
+              "icp_moments_banded": banded.icp_moments_banded_plain,
+              "icp_moments_banded_v2": banded.icp_moments_banded_v2_plain}
+
+    def p5_run():
+        return {k: fn(s1, w1_mask, d1, w1_mask, **BANDED)
+                for k, fn in loops.items()}
+    with Recorder(banded, launchers["nearest_banded"]) as r6, \
+            Recorder(banded, launchers["icp_moments_banded"]) as r7, \
+            Recorder(banded, launchers["icp_moments_banded_v2"]) as r8:
+        Tb = paths.run("banded_loops", p5_run,
+                       {k: BANDED["iters"] for k in loops})
+    metrics["banded_loops"] = {}
+    for k, fn in loops.items():
+        rte, rre = gate(fn.__name__, Tb[k], w1_gt, se3, torch)
+        ms = cuda_ms(lambda fn=fn: fn(s1, w1_mask, d1, w1_mask, **BANDED),
+                     reps=3)
+        report["profile_" + fn.__name__] = profile(
+            fn.__name__, lambda fn=fn: fn(s1, w1_mask, d1, w1_mask, **BANDED),
+            torch, top=4)
+        with swapped(banded, launchers[k], plains[k]):
+            Tp = fn(s1, w1_mask, d1, w1_mask, **BANDED)
+        err = float((Tb[k] - Tp).abs().max())
+        need(err <= 1e-4, fn.__name__, "T vs plain", err)
+        metrics["banded_loops"][fn.__name__] = dict(
+            rte=rte, rre=rre, call_ms=ms, iters_per_s=30 / (ms / 1e3),
+            loop_err_vs_plain=err)
+        print(f"P5 {fn.__name__}: RTE {rte:.4f} m, RRE {rre:.4f} deg; "
+              f"{ms:.2f} ms per 30 iterations; T vs plain {err:.1e}")
+
+    # ---- P6 register_pair: one 35 degree pair of P1 ----------------------
+    one = (PointCloud(src.points[0], mask[0]), PointCloud(dst.points[0],
+                                                          mask[0]))
+
+    def p6_run():
+        gen = torch.Generator(device=dev).manual_seed(args.seed)
+        return pipeline.register_pair(*one, cfg=cfg, generator=gen)
+    p6_run()
+    with Recorder(mega, "_launch_icp_mega") as r_k5p6, \
+            Recorder(pallas_nn, "nn1") as r_nn_p6:
+        out6 = paths.run("register_pair", p6_run, {"icp_mega": 2, "nn1": 1})
+    need(out6.T.shape == (4, 4) and torch.isfinite(out6.icp_rmse))
+    rte, rre = gate("register_pair", out6.T, gts[0], se3, torch)
+    p6_ms = cuda_ms(p6_run, reps=3, warmup=0)
+    report["profile_register_pair"] = profile("register_pair", p6_run, torch,
+                                              top=6)
+    with swapped(mega, "_launch_icp_mega", mega.icp_mega_plain), \
+            swapped(pallas_nn, "nn1", pallas_nn.nearest_plain):
+        out6p = p6_run()
+    metrics["register_pair"] = dict(
+        rte=rte, rre=rre, call_ms=p6_ms, num_matches=int(out6.num_matches),
+        loop_err_vs_plain=float((out6.T - out6p.T).abs().max()))
+    need(metrics["register_pair"]["loop_err_vs_plain"] <= 1e-4,
+         "register_pair T", metrics["register_pair"]["loop_err_vs_plain"])
+    print(f"P6 register_pair ({N_POINTS} pts @ {ROT_DEG} deg): RTE {rte:.4f} "
+          f"m, RRE {rre:.4f} deg; {p6_ms:.1f} ms per call; T vs plain "
+          f"{metrics['register_pair']['loop_err_vs_plain']:.1e}")
+
+    # ---- kernel 5, K6-K8 against their plain versions --------------------
+    w4_cut = [a[:6] + (2,) + a[7:] for a in r_k5w4.calls]   # iters cut to 2
+    errs = check_mega(mega, r_k5.calls + w4_cut + r_k5p6.calls, torch)
+    # K1 at the shapes of P3 (16,384 queries against the whole scan: the
+    # db ends in a partial tile) and P6 (one pair)
+    nn_other = [check_nn1(mods, a, torch, timed=False)
+                for a in r_nn_w4.calls + r_nn_p6.calls]
+    rows["nn1"]["other_paths"] = nn_other
+    rows["nn1"]["max_abs_err"] = max(
+        [rows["nn1"]["max_abs_err"]] + [r["max_abs_err"] for r in nn_other])
+    rows["icp_mega"] = dict(max_abs_err=max(errs), library_ms=None,
+                            workload4_launch_ms=metrics["workload4"][
+                                "kernel5_ms"],
+                            workload4_bound=bound(
+                                mega_work(r_k5w4.calls[0])[1],
+                                mega_work(r_k5w4.calls[0])[0]),
+                            **time_mega(mega, r_k5.calls))
+    rows.update(check_banded(banded, {"nearest_banded": r6.calls,
+                                      "icp_moments_banded": r7.calls,
+                                      "icp_moments_banded_v2": r8.calls},
+                             torch))
+    print("kernel vs plain: all within tolerance")
+
+    # ---- kernels line, card, result --------------------------------------
     meta = {
         "nn1": ("pctpu_torch/csrc/nn1.cu",
                 "pctpu/ops/pallas_nn.py:27 _nn_kernel"),
@@ -480,30 +831,43 @@ def main(argv=None):
                  "pctpu/features/pallas_fpfh.py:88 _spfh_kernel"),
         "wsum": ("pctpu_torch/csrc/fpfh.cu",
                  "pctpu/features/pallas_fpfh.py:147 _wsum_kernel"),
+        "icp_mega_batch": ("pctpu_torch/csrc/icp_mega.cu",
+                           "pctpu/ops/pallas_icp_mega.py:308 "
+                           "_icp_mega_kernel_batch"),
         "icp_mega": ("pctpu_torch/csrc/icp_mega.cu",
-                     "pctpu/ops/pallas_icp_mega.py:308 "
-                     "_icp_mega_kernel_batch"),
+                     "pctpu/ops/pallas_icp_mega.py:297 _icp_mega_kernel"),
+        "nearest_banded": ("pctpu_torch/csrc/banded.cu",
+                           "pctpu/ops/pallas_banded.py:104 _banded_kernel"),
+        "icp_moments_banded": ("pctpu_torch/csrc/banded.cu",
+                               "pctpu/ops/pallas_banded.py:179 "
+                               "_moments_kernel"),
+        "icp_moments_banded_v2": ("pctpu_torch/csrc/banded.cu",
+                                  "pctpu/ops/pallas_banded.py:321 "
+                                  "_moments_kernel_v2"),
     }
     kern_rows = []
-    for name, (source, replaces) in meta.items():
+    for name in KERNELS:
+        source, replaces = meta[name]
         r = rows[name]
+        launches = paths.total(name)
+        need(launches > 0, name, "never launched on a path")
         kern_rows.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=launches[name], max_abs_err=r["max_abs_err"],
-            ms=r["ms"], kernel_ms=r["ms"], plain_ms=r["plain_ms"],
-            bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-            library_ms=r["library_ms"],
-            **{k: r[k] for k in ("window_path_err", "per_launch_ms")
-               if k in r}))
-    report.update(card=card, kernels=kern_rows, pairs_per_s=pairs_s,
-                  batch_ms=pair_ms, worst_rte=float(rte.max()),
-                  worst_rre=float(rre.max()), launches=launches,
+            launches=launches, max_abs_err=r["max_abs_err"], ms=r["ms"],
+            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=r["library_ms"]))
+    report.update(card=card, kernels=kern_rows, kernel_detail=rows,
+                  metrics=metrics, launches=paths.launches,
                   seconds=time.perf_counter() - t_all,
                   note="ms/plain_ms/bound_ms/library_ms: summed over the "
-                       "kernel's launches in one register_pairs call")
+                       "kernel's recorded launches in one call of its path "
+                       "(K1-K4: register_pairs; icp_mega: workload 1; "
+                       "K6-K8: one 30-iteration call); launches: "
+                       "summed over the paths")
+    print(f"total {report['seconds']:.1f} s")
     (ROOT / "build").mkdir(exist_ok=True)
     (ROOT / "build" / "chip_smoke.json").write_text(
-        json.dumps(report, indent=1))
+        json.dumps(report, indent=1, default=str))
     print(json.dumps({"kernels": kern_rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

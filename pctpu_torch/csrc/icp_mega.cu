@@ -1,9 +1,13 @@
-// K4 icp_mega: every fixed ICP iteration of a pair sweep in one launch.
+// K4 / kernel 5 icp_mega: every fixed ICP iteration of a pair sweep (or of
+// one pair) in one launch.
 //
-// Replaces the TPU kernel pctpu/ops/pallas_icp_mega.py:_icp_mega_kernel_batch
-// (body _mega_body :174-294, launched by icp_mega_batch :422), whose
-// sequential (B, iters, ntiles) grid carries the pose and the 4x4 moments
-// in scratch memory from one grid step to the next.
+// Replaces the TPU kernels pctpu/ops/pallas_icp_mega.py:
+// _icp_mega_kernel_batch (K4, launched by icp_mega_batch :422) and
+// _icp_mega_kernel (kernel 5, launched by icp_mega :355), thin wrappers
+// over one body, _mega_body :174-294, whose sequential (B, iters, ntiles)
+// or (iters, ntiles) grid carries the pose and the 4x4 moments in scratch
+// memory from one grid step to the next. Kernel 5 is this entry with
+// B = 1: one CTA.
 //
 // What it computes, per pair and iteration, for each query tile: the tile
 // transformed by the current pose; the db window [base, base + wb) blocks

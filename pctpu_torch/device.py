@@ -25,6 +25,12 @@ def check_precision() -> None:
         raise RuntimeError("TF32 is enabled; the port needs exact float32")
 
 
+def f32_square(x: float) -> float:
+    """float32(x) ** 2 rounded to float32: the reference's f32 thresholds
+    (`jnp.float32(dist_thresh) ** 2`)."""
+    return float(torch.tensor(float(x), dtype=torch.float32) ** 2)
+
+
 def resolve_device(device: DeviceLike = None) -> torch.device:
     """The device an entry point runs on: CUDA by default, the CPU only
     when the caller names it. Raises when CUDA is asked for (or implied)

@@ -20,3 +20,10 @@ def _flat_row_gather(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 def gather_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """points [..., N, C], idx [..., M] -> [..., M, C]."""
     return _flat_row_gather(points, idx)
+
+
+def group_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """points [..., N, C], idx [..., M, K] -> [..., M, K, C]."""
+    m, k = idx.shape[-2], idx.shape[-1]
+    out = _flat_row_gather(points, idx.reshape(idx.shape[:-2] + (m * k,)))
+    return out.reshape(idx.shape[:-2] + (m, k, points.shape[-1]))

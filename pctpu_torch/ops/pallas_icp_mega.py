@@ -1,7 +1,13 @@
-"""Whole-loop ICP: every fixed iteration in one launch — kernel K4
-(`csrc/icp_mega.cu`), the port of the TPU kernel
-`pctpu/ops/pallas_icp_mega.py:_icp_mega_kernel_batch` (body `_mega_body`),
-wrapped by `icp_mega_batch`.
+"""Whole-loop ICP: every fixed iteration in one launch (port of
+`pctpu/ops/pallas_icp_mega.py`). Two TPU kernels share one body there,
+`_mega_body`, and so do their ports: `csrc/icp_mega.cu` serves both.
+
+  K4 `icp_mega_batch`: a batch of pairs (`_icp_mega_kernel_batch`),
+     one CTA per pair;
+  kernel 5 `icp_mega`: one pair (`_icp_mega_kernel`), the same CUDA entry
+     launched with B = 1.
+
+Each wrapper counts its own launches.
 
 Each iteration, for each query tile: transform the tile by the current
 pose, pick the db window from the LUT (the tile's transformed centre),
@@ -13,8 +19,8 @@ Procrustes problem is solved in scalars (Newton polar + adjugate flip,
 `_s_procrustes_from_moments`) and composed into the pose, unless fewer
 than 3 correspondences passed the gate.
 
-The plain version below runs the same formulas on [B]-batched tensors,
-including the same scalar-form Procrustes (not `register.procrustes`'s
+The plain version below (of both) runs the same formulas on [B]-batched
+tensors, including the same scalar-form Procrustes (not `register.procrustes`'s
 matrix form), so kernel and plain agree tightly.
 """
 from __future__ import annotations
@@ -229,24 +235,16 @@ def icp_mega_plain(dbt5, lut, scal, src3, spen, centers, iters: int,
 
 
 # ---------------------------------------------------------------------------
-# the wrapper
+# the wrappers
 # ---------------------------------------------------------------------------
 
-def icp_mega(dbt5, lut, scal, src3, spen, centers, iters: int,
-             thresh2: float, block: int, wb: int, query_tile: int,
-             newton_iters: int = 6) -> torch.Tensor:
-    """K4 wrapper -> pose [B,12]. CPU tensors take the plain version; CUDA
-    tensors launch the kernel (one CTA per pair) or raise."""
-    b, five, np_ = dbt5.shape
+def _launch_icp_mega(dbt5, lut, scal, src3, spen, centers, iters: int,
+                     thresh2: float, block: int, wb: int, query_tile: int,
+                     newton_iters: int = 6) -> torch.Tensor:
+    """Launch `csrc/icp_mega.cu` on CUDA tensors (the layouts of
+    `icp_mega_plain`) -> pose [B,12]; one CTA per pair."""
+    b, _, np_ = dbt5.shape
     mp = src3.shape[2]
-    if (five != 5 or np_ % block or mp % query_tile or not 1 <= wb <= np_ // block
-            or src3.shape != (b, 3, mp) or spen.shape != (b, mp)
-            or lut.shape != (b, LUT_BINS + 1) or scal.shape != (b, 16)
-            or centers.shape != (b, 3 * (mp // query_tile))):
-        raise ValueError("icp_mega: bad shapes or tiling")
-    if dbt5.device.type == "cpu":
-        return icp_mega_plain(dbt5, lut, scal, src3, spen, centers, iters,
-                              thresh2, block, wb, query_tile, newton_iters)
     f32, i32 = torch.float32, torch.int32
     kernels.require_cuda("icp_mega", dbt5, src3, spen, lut, centers, scal,
                          dtypes=(f32, f32, f32, i32, f32, f32))
@@ -258,8 +256,87 @@ def icp_mega(dbt5, lut, scal, src3, spen, centers, iters: int,
                      out.data_ptr(), b, np_, mp, block, wb, query_tile,
                      iters, newton_iters, LUT_BINS + 1, thresh2,
                      kernels.stream_ptr(dbt5.device)), "icp_mega")
-    icp_mega.launches += 1
     return out[:, :12]
+
+
+def _mega_args(dbt5, lut, lo, hi, axis, src3, spen, centers, init_T,
+               iters, dist_thresh, block, window_blocks, query_tile,
+               newton_iters):
+    """The [B]-batched argument tuple of `icp_mega_plain` and
+    `_launch_icp_mega`; raises on shapes the kernel does not take."""
+    bsz, five, np_ = dbt5.shape
+    mp = src3.shape[2]
+    dev = src3.device
+    scal = torch.cat([
+        init_T[:, :3, :3].reshape(bsz, 9), init_T[:, :3, 3],
+        lo.reshape(bsz, 1), hi.reshape(bsz, 1),
+        axis.float().reshape(bsz, 1),
+        torch.zeros((bsz, 1), dtype=torch.float32, device=dev)],
+        dim=1).float().contiguous()
+    nb = np_ // block
+    wb = min(window_blocks, nb)
+    args = (dbt5.float().contiguous(),
+            lut.reshape(bsz, -1).int().contiguous(), scal,
+            src3.float().contiguous(),
+            spen.reshape(bsz, -1).float().contiguous(),
+            centers.reshape(bsz, -1).float().contiguous(),
+            iters, float(dist_thresh) ** 2, block, wb, query_tile,
+            newton_iters)
+    if (five != 5 or np_ % block or mp % query_tile or wb < 1
+            or src3.shape != (bsz, 3, mp) or args[4].shape != (bsz, mp)
+            or args[1].shape != (bsz, LUT_BINS + 1)
+            or args[5].shape != (bsz, 3 * (mp // query_tile))):
+        raise ValueError("icp_mega: bad shapes or tiling")
+    return args
+
+
+def _pose_to_T(pose: torch.Tensor) -> torch.Tensor:
+    """[B,12] (R row-major, t) -> [B,4,4]."""
+    bsz = pose.shape[0]
+    T = torch.eye(4, dtype=torch.float32, device=pose.device).repeat(bsz, 1, 1)
+    T[:, :3, :3] = pose[:, :9].reshape(bsz, 3, 3)
+    T[:, :3, 3] = pose[:, 9:12]
+    return T
+
+
+def pack_dbt5(bdb) -> torch.Tensor:
+    """[5,Np] (or [B,5,Np]) packed db for the mega kernels: rows x, y, z,
+    pen2, ones."""
+    return torch.cat([bdb.dbt, bdb.pen2, torch.ones_like(bdb.pen2)], dim=-2)
+
+
+def _single_args(bdb, src3, spen, centers, init_T, iters=30,
+                 dist_thresh=5.0, block=512, window_blocks=4,
+                 query_tile=256, newton_iters=6):
+    """`icp_mega`'s arguments as the B = 1 tuple of `icp_mega_plain`."""
+    return _mega_args(pack_dbt5(bdb)[None], bdb.lut[None], bdb.lo, bdb.hi,
+                      bdb.axis, src3[None], spen, centers, init_T[None],
+                      iters, dist_thresh, block, window_blocks, query_tile,
+                      newton_iters)
+
+
+def icp_mega(bdb, src3: torch.Tensor, spen: torch.Tensor,
+             centers: torch.Tensor, init_T: torch.Tensor, iters: int = 30,
+             dist_thresh: float = 5.0, block: int = 512,
+             window_blocks: int = 4, query_tile: int = 256,
+             newton_iters: int = 6) -> torch.Tensor:
+    """Kernel 5: `iters` full ICP iterations of ONE pair in one launch;
+    returns T [4,4].
+
+    bdb: the single-db `BandedDB`; src3 [3,Mp] SORTED source points
+    (pre-transform, padded to a query_tile multiple); spen [1,Mp] 0 valid
+    / BIG pad; centers [1,3*ntiles] per-tile centre source coords. CPU
+    tensors take the plain version; CUDA tensors launch the kernel (one
+    CTA) or raise."""
+    args = _single_args(bdb, src3, spen, centers, init_T, iters,
+                        dist_thresh, block, window_blocks, query_tile,
+                        newton_iters)
+    if src3.device.type == "cpu":
+        pose = icp_mega_plain(*args)
+    else:
+        pose = _launch_icp_mega(*args)
+        icp_mega.launches += 1
+    return _pose_to_T(pose)[0]
 
 
 icp_mega.launches = 0
@@ -273,28 +350,23 @@ def icp_mega_batch(dbt5: torch.Tensor, lut: torch.Tensor,
                    block: int = 512, window_blocks: int = 4,
                    query_tile: int = 256,
                    newton_iters: int = 6) -> torch.Tensor:
-    """Batched whole-loop ICP, one launch for the whole pair sweep.
+    """K4: batched whole-loop ICP, one launch for the whole pair sweep.
 
     Layouts (leading B on everything, as the reference): dbt5 [B,5,Np]
     packed db (x, y, z, pen2, ones), lut [B,1,LUT_BINS+1], lo/hi [B]
     band-axis range, axis [B] sort axis, src3 [B,3,Mp], spen [B,1,Mp],
-    centers [B,1,3*ntiles], init_T [B,4,4]. Returns [B,4,4]."""
-    bsz = src3.shape[0]
-    scal = torch.cat([
-        init_T[:, :3, :3].reshape(bsz, 9), init_T[:, :3, 3],
-        lo[:, None], hi[:, None], axis.float()[:, None],
-        torch.zeros((bsz, 1), dtype=torch.float32, device=src3.device)],
-        dim=1).float().contiguous()
-    nb = dbt5.shape[2] // block
-    wb = min(window_blocks, nb)
-    pose = icp_mega(dbt5.float().contiguous(),
-                    lut.reshape(bsz, -1).int().contiguous(), scal,
-                    src3.float().contiguous(),
-                    spen.reshape(bsz, -1).float().contiguous(),
-                    centers.reshape(bsz, -1).float().contiguous(),
-                    iters, float(dist_thresh) ** 2, block, wb, query_tile,
-                    newton_iters)
-    T = torch.eye(4, dtype=torch.float32, device=src3.device).repeat(bsz, 1, 1)
-    T[:, :3, :3] = pose[:, :9].reshape(bsz, 3, 3)
-    T[:, :3, 3] = pose[:, 9:12]
-    return T
+    centers [B,1,3*ntiles], init_T [B,4,4]. Returns [B,4,4]. CPU tensors
+    take the plain version; CUDA tensors launch the kernel (one CTA per
+    pair) or raise."""
+    args = _mega_args(dbt5, lut, lo, hi, axis, src3, spen, centers,
+                      init_T.float(), iters, dist_thresh, block,
+                      window_blocks, query_tile, newton_iters)
+    if src3.device.type == "cpu":
+        pose = icp_mega_plain(*args)
+    else:
+        pose = _launch_icp_mega(*args)
+        icp_mega_batch.launches += 1
+    return _pose_to_T(pose)
+
+
+icp_mega_batch.launches = 0

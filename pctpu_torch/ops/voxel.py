@@ -1,7 +1,8 @@
-"""Batched centroid voxel downsample with a uniform-stride cap (port of
-`pctpu/ops/voxel.py:voxel_downsample_capped`).
+"""Centroid voxel downsample (port of `pctpu/ops/voxel.py`):
+`voxel_downsample` for one cloud at full capacity, and the batched
+`voxel_downsample_capped` with a uniform-stride cap.
 
-One stable sort on a fused int32 cell key carries the cell-relative
+`voxel_downsample_capped`: one stable sort on a fused int32 cell key carries the cell-relative
 coordinates and the mask as payload; per-voxel sums are CUMSUM
 DIFFERENCES at run boundaries; when more than `cap` voxels exist a uniform
 stride over the cell-sorted voxel ids picks the kept ones. The output is
@@ -94,3 +95,56 @@ def voxel_downsample_capped(points: torch.Tensor, mask: torch.Tensor,
     out_pts = torch.where(out_mask[..., None], out_pts,
                           out_pts[:, :1].expand_as(out_pts))
     return PointCloud(points=out_pts, mask=out_mask), nv
+
+
+def voxel_downsample(points: torch.Tensor, mask: torch.Tensor, leaf: float,
+                     method: str = "centroid") -> PointCloud:
+    """points [N,3], mask [N] -> PointCloud of voxel centroids (capacity
+    N, valid voxels compacted to the front in (x, y, z) cell order).
+
+    The reference's 3-key `lexsort` is three stable sorts here; its
+    `segment_sum` is a cumsum difference over each voxel's contiguous run
+    in f64, rounded once to f32, which is deterministic on the card. Only
+    `method="centroid"` is ported."""
+    if method != "centroid":
+        raise ValueError(f"voxel_downsample: method {method!r} is not "
+                         "ported (only 'centroid')")
+    n = points.shape[0]
+    dev = points.device
+    points = points.float()
+    pmin = torch.amin(torch.where(mask[:, None], points,
+                                  torch.full_like(points, 1e30)), dim=0)
+    cellf = torch.floor((points - pmin) / float(leaf))
+    cell = torch.where(mask[:, None], cellf, 0.0).long()
+    cell = torch.where(mask[:, None], cell, INT_SENTINEL)   # padding last
+    order = torch.arange(n, device=dev)
+    for k in (2, 1, 0):                      # lexsort, x the primary key
+        _, perm = torch.sort(cell[order, k], stable=True)
+        order = order[perm]
+    cs, ps, ms = cell[order], points[order], mask[order]
+
+    new_run = torch.any(cs != torch.roll(cs, 1, dims=0), dim=1)
+    new_run[0] = True
+    new_run = new_run & ms
+    seg = torch.cumsum(new_run.long(), dim=0) - 1
+    nv = new_run.sum()
+    nxt_start = torch.cat([new_run[1:] | ~ms[1:],
+                           torch.ones(1, dtype=torch.bool, device=dev)])
+    is_end = ms & nxt_start
+    idx = torch.arange(n, device=dev)
+
+    def by_voxel(flag):   # row index of each voxel's flagged row
+        slot = torch.where(flag, seg, n)     # slot n collects the rest
+        return torch.zeros(n + 1, dtype=torch.long, device=dev).scatter_(
+            0, slot, idx)[:n]
+
+    s_v, e_v = by_voxel(new_run), by_voxel(is_end)
+    vals = torch.cat([torch.where(ms[:, None], ps, 0.0),
+                      ms[:, None].float()], dim=1).double()
+    csum = torch.cumsum(vals, dim=0)
+    sums = csum[e_v] - torch.where((s_v > 0)[:, None],
+                                   csum[torch.clamp_min(s_v - 1, 0)], 0.0)
+    out_pts = (sums[:, :3] / torch.clamp_min(sums[:, 3:], 1.0)).float()
+    out_mask = idx < nv
+    out_pts = torch.where(out_mask[:, None], out_pts, out_pts[:1])
+    return PointCloud(points=out_pts, mask=out_mask)

@@ -1,13 +1,21 @@
-"""Batched coarse-to-fine registration (port of
-`pctpu/register/pipeline.py:register_pairs` on its accelerator path,
-`feature_backend="fused"`, `icp_backend="mega"`):
+"""Coarse-to-fine registration (port of `pctpu/register/pipeline.py`).
+
+`register_pairs`, batched, on the reference's accelerator path
+(`feature_backend="fused"`, `icp_backend="mega"`):
 
   cloud -> voxel downsample (cap, cell-lexsorted) -> radius normals ->
   FPFH-33 (K2 spfh, K3 wsum) -> mutual-NN matching -> batched RANSAC ->
   voxel-cloud ICP (K4) -> exact full-res refine (K4) -> stats (K1).
 
-The port has this one path. On the card each stage's kernel runs; on the
-CPU (`device="cpu"`) each kernel's plain PyTorch version runs.
+`register_pair`, one pair:
+
+  cloud -> voxel downsample -> uniform cap -> kNN normals -> FPFH-33
+  (neighbour lists) -> mutual-NN matching -> RANSAC -> whole-loop ICP
+  (kernel 5: windowed, then exact) -> stats (K1).
+
+`icp_backend="while"` runs the convergence-tested `icp_point_to_point`
+(K1) instead of the mega kernels, in both. On the card each stage's
+kernel runs; on the CPU (`device="cpu"`) each kernel's plain version runs.
 """
 from __future__ import annotations
 
@@ -18,44 +26,61 @@ import torch
 
 from pctpu_torch.core import se3
 from pctpu_torch.core.cloud import PointCloud
-from pctpu_torch.device import DeviceLike, resolve_device
+from pctpu_torch.device import DeviceLike, f32_square, resolve_device
+from pctpu_torch.features.fpfh import fpfh
 from pctpu_torch.features.matching import match_features
 from pctpu_torch.features.pallas_fpfh import fpfh_fused
 from pctpu_torch.ops.gather import gather_points
 from pctpu_torch.ops.knn import nearest
-from pctpu_torch.ops.voxel import voxel_downsample_capped
-from pctpu_torch.register.icp import (icp_fixed_iters_banded_mega_batch,
+from pctpu_torch.ops.voxel import voxel_downsample, voxel_downsample_capped
+from pctpu_torch.register.icp import (ICPConfig, icp_fixed_iters_banded_mega,
+                                      icp_fixed_iters_banded_mega_batch,
+                                      icp_point_to_point,
                                       icp_refine_exact_mega_batch)
 from pctpu_torch.register.ransac import (Sampler, generator_sampler,
+                                         ransac_registration,
                                          ransac_registration_batch)
+
+ICP_BACKENDS = ("auto", "mega", "while")
 
 
 @dataclasses.dataclass(frozen=True)
 class RegistrationConfig:
-    """The reference's `RegistrationConfig` fields that `register_pairs`'
-    fused/mega path reads, with the same defaults."""
+    """The reference's `RegistrationConfig` fields, with the same defaults
+    (`pctpu/register/pipeline.py:31-95`). `icp_backend` "auto" and "mega"
+    run the mega kernels on the card (their plain versions on the CPU);
+    "while" runs `icp_point_to_point`."""
     voxel_size: float = 2.0
+    normal_k: int = 30
     feature_radius: float = 10.0
+    feature_k_cap: int = 100
     ransac_dist: float = 4.0
     ransac_hypotheses: int = 1024
     ransac_m_cap: int = 512
     icp_dist_thresh: float = 5.0
+    icp_max_iters: int = 100
+    icp_query_chunk: int = 2048
     downsample_capacity: int = 2048
+    icp_backend: str = "auto"
+    icp_fixed_coarse: int = 47
+    icp_fixed_polish: int = 3
     normal_radius: float = 4.0
     icp_voxel_iters: int = 14
     icp_refine_iters: int = 2
     refine_subsample: int = 2048
     stats_subsample: int = 1024
 
-    # reference fields that select the path: the port runs only this one
-    _PATH = {"keypoints": ("all",), "feature_backend": ("auto", "fused"),
-             "icp_backend": ("auto", "mega")}
-    # reference fields that this path never reads (single-pair
-    # `register_pair`, the XLA while-loop ICP, the ISS keypoint option)
-    _UNUSED = ("normal_k", "feature_k_cap", "icp_max_iters",
-               "icp_query_chunk", "icp_fixed_coarse", "icp_fixed_polish",
-               "iss_salient_radius", "iss_nonmax_radius",
+    # reference fields that select a path: the port runs only these values
+    _PATH = {"keypoints": ("all",), "feature_backend": ("auto", "fused")}
+    # reference fields read only by a path the port does not have (the ISS
+    # keypoint option, keypoints="iss", which from_dict refuses)
+    _UNUSED = ("iss_salient_radius", "iss_nonmax_radius",
                "iss_min_neighbors", "iss_k_cap")
+
+    def __post_init__(self):
+        if self.icp_backend not in ICP_BACKENDS:
+            raise ValueError(f"icp_backend={self.icp_backend!r}: expected "
+                             f"one of {ICP_BACKENDS}")
 
     @classmethod
     def from_dict(cls, d: dict) -> "RegistrationConfig":
@@ -88,6 +113,12 @@ class RegistrationOutput(NamedTuple):
     dst_voxels: torch.Tensor
 
 
+def _icp_config(cfg: RegistrationConfig) -> ICPConfig:
+    return ICPConfig(max_iters=cfg.icp_max_iters,
+                     dist_thresh=cfg.icp_dist_thresh,
+                     query_chunk=cfg.icp_query_chunk)
+
+
 def _refine_exact_batch(T, src: PointCloud, dst: PointCloud,
                         cfg: RegistrationConfig):
     """`icp_refine_iters` exact iterations of a strided full-res source
@@ -110,9 +141,7 @@ def _icp_stats_subsampled(T, src: PointCloud, dst: PointCloud,
     q = src.points[:, ::stride][:, :cfg.stats_subsample]
     qm = src.mask[:, ::stride][:, :cfg.stats_subsample]
     d2, _ = nearest(se3.apply_transform(T, q), dst.points, dst.mask)
-    thresh2 = float(torch.tensor(cfg.icp_dist_thresh,
-                                 dtype=torch.float32)) ** 2
-    inl = (d2 <= thresh2) & qm
+    inl = (d2 <= f32_square(cfg.icp_dist_thresh)) & qm
     num = inl.sum(dim=1, dtype=torch.int32)
     rmse = torch.sqrt(torch.where(inl, d2, torch.zeros_like(d2)).sum(dim=1)
                       / torch.clamp_min(num.float(), 1.0))
@@ -126,6 +155,7 @@ def register_pairs(src: PointCloud, dst: PointCloud,
                    device: DeviceLike = None) -> RegistrationOutput:
     """Batched full pipeline on clouds with a leading pair axis
     ([B,N,3] points, [B,N] masks) -> RegistrationOutput (T src->dst).
+    With `icp_backend="while"` the pairs' ICP runs one by one.
 
     Runs on CUDA unless `device="cpu"`; raises without a card. RANSAC
     draws come from `sampler` if given, else from `generator` (a
@@ -161,6 +191,16 @@ def register_pairs(src: PointCloud, dst: PointCloud,
         m_cap=cfg.ransac_m_cap)
     num_matches = matches.valid.sum(dim=1, dtype=torch.int32)
 
+    if cfg.icp_backend == "while":
+        icp_cfg = _icp_config(cfg)
+        res = [icp_point_to_point(src.points[i], src.mask[i], dst.points[i],
+                                  dst.mask[i], init_T=rr.T[i], cfg=icp_cfg,
+                                  device=dev) for i in range(b)]
+        return RegistrationOutput(
+            torch.stack([r.T for r in res]), rr.T, rr.fitness,
+            torch.stack([r.iters for r in res]),
+            torch.stack([r.rmse for r in res]), num_matches, s_nv, d_nv)
+
     # multiscale ICP: exact-window iterations on the 2k voxel clouds, then
     # exact strided full-res refine iterations against the full target
     T = icp_fixed_iters_banded_mega_batch(
@@ -175,3 +215,101 @@ def register_pairs(src: PointCloud, dst: PointCloud,
                        dtype=torch.int32, device=dev)
     return RegistrationOutput(T, rr.T, rr.fitness, iters, rmse,
                               num_matches, s_nv, d_nv)
+
+
+# ---------------------------------------------------------------------------
+# single pair
+# ---------------------------------------------------------------------------
+
+def _cap_uniform(down: PointCloud, cap: int):
+    """Slice a front-compacted voxel cloud to `cap` points; when more
+    voxels are valid, stride uniformly over the valid prefix (the voxels
+    are lexsorted by cell, so a stride samples the scene evenly)."""
+    n = down.points.shape[0]
+    nv = down.mask.sum(dtype=torch.int32)
+    if cap >= n:
+        return down, nv
+    i = torch.arange(cap, device=down.points.device)
+    idx = torch.where(nv > cap, torch.div(i * nv, cap, rounding_mode="floor"),
+                      i)
+    return PointCloud(points=down.points[idx], mask=down.mask[idx]), nv
+
+
+def _front_end(src: PointCloud, dst: PointCloud, sampler: Sampler,
+               cfg: RegistrationConfig):
+    """voxel -> FPFH (neighbour lists) -> mutual matching -> RANSAC global
+    init, for one pair."""
+
+    def preprocess(pc: PointCloud):
+        down = voxel_downsample(pc.points, pc.mask, cfg.voxel_size)
+        down, nv = _cap_uniform(down, cfg.downsample_capacity)
+        feats = fpfh(down.points, mask=down.mask, radius=cfg.feature_radius,
+                     k_cap=cfg.feature_k_cap, normal_k=cfg.normal_k)
+        return down, feats, nv
+
+    sdown, sfeat, s_nv = preprocess(src)
+    ddown, dfeat, d_nv = preprocess(dst)
+    matches = match_features(sfeat, dfeat, src_mask=sdown.mask,
+                             dst_mask=ddown.mask, mutual=True)
+    dst_kp = gather_points(ddown.points, matches.dst_idx)
+    rr = ransac_registration(sdown.points, dst_kp, matches.valid, sampler,
+                             dist_thresh=cfg.ransac_dist,
+                             num_hypotheses=cfg.ransac_hypotheses)
+    return rr, matches.valid.sum(dtype=torch.int32), s_nv, d_nv
+
+
+def _icp_stats(T, src: PointCloud, dst: PointCloud,
+               cfg: RegistrationConfig):
+    """One exact association pass (K1) at the final pose: inlier count and
+    RMSE."""
+    d2, _ = nearest(se3.apply_transform(T, src.points), dst.points,
+                    dst.mask, cfg.icp_query_chunk)
+    inl = (d2 <= f32_square(cfg.icp_dist_thresh)) & src.mask
+    num = inl.sum(dtype=torch.int32)
+    rmse = torch.sqrt(torch.where(inl, d2, torch.zeros_like(d2)).sum()
+                      / torch.clamp_min(num.float(), 1.0))
+    return num, rmse
+
+
+def _register_pair_impl(src: PointCloud, dst: PointCloud, sampler: Sampler,
+                        cfg: RegistrationConfig,
+                        dev: torch.device) -> RegistrationOutput:
+    """The full coarse-to-fine chain for ONE pair."""
+    rr, num_matches, s_nv, d_nv = _front_end(src, dst, sampler, cfg)
+    if cfg.icp_backend == "while":
+        icp = icp_point_to_point(src.points, src.mask, dst.points, dst.mask,
+                                 init_T=rr.T, cfg=_icp_config(cfg),
+                                 device=dev)
+        icp_T, icp_iters, icp_rmse = icp.T, icp.iters, icp.rmse
+    else:
+        icp_T = icp_fixed_iters_banded_mega(
+            src.points, src.mask, dst.points, dst.mask, init_T=rr.T,
+            coarse_iters=cfg.icp_fixed_coarse,
+            polish_iters=cfg.icp_fixed_polish,
+            dist_thresh=cfg.icp_dist_thresh, block=1024, window_blocks=1,
+            query_tile=1024, device=dev)
+        _, icp_rmse = _icp_stats(icp_T, src, dst, cfg)
+        icp_iters = torch.tensor(cfg.icp_fixed_coarse + cfg.icp_fixed_polish,
+                                 dtype=torch.int32, device=dev)
+    return RegistrationOutput(icp_T, rr.T, rr.fitness, icp_iters, icp_rmse,
+                              num_matches, s_nv, d_nv)
+
+
+def register_pair(src: PointCloud, dst: PointCloud,
+                  cfg: RegistrationConfig = RegistrationConfig(),
+                  sampler: Optional[Sampler] = None,
+                  generator: Optional[torch.Generator] = None,
+                  device: DeviceLike = None) -> RegistrationOutput:
+    """Full coarse-to-fine registration of two padded clouds ([N,3]
+    points, [N] masks) -> RegistrationOutput (T [4,4] src -> dst).
+
+    Runs on CUDA unless `device="cpu"`; raises without a card. RANSAC
+    draws come from `sampler` if given, else from `generator` (a
+    `torch.Generator` on the run's device; seed 0 when omitted)."""
+    dev = resolve_device(device)
+    src, dst = src.to(dev), dst.to(dev)
+    if sampler is None:
+        if generator is None:
+            generator = torch.Generator(device=dev).manual_seed(0)
+        sampler = generator_sampler(generator)
+    return _register_pair_impl(src, dst, sampler, cfg, dev)

@@ -1,15 +1,18 @@
-"""Weighted Procrustes with the Newton-polar rotation solver (port of
-`pctpu/register/procrustes.py:22-175`), batched over leading axes.
+"""Weighted Procrustes (port of `pctpu/register/procrustes.py`), batched
+over leading axes.
 
 Rotations come from the Higham-scaled Newton polar iteration with the
-adjugate reflection flip, never from an SVD; a rank-deficient H falls
-back to the closed form from the eigensystem of H^T H."""
+adjugate reflection flip; a rank-deficient H falls back to the closed
+form from the eigensystem of H^T H. Only `procrustes_from_moments`'
+`solver="svd"` takes a 3x3 `torch.linalg.svd`, as the reference leaves
+its SVD to XLA."""
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
 
+from pctpu_torch.core import se3
 from pctpu_torch.ops.eigh3 import _cross, eigh3
 
 
@@ -103,3 +106,41 @@ def weighted_procrustes(src: torch.Tensor, dst: torch.Tensor,
     R = rotation_polar3(H)
     t = dst_c - (R @ src_c[..., None])[..., 0]
     return R, t
+
+
+def procrustes_from_moments(M: torch.Tensor, allow_reflection: bool = False,
+                            solver: str = "svd"):
+    """Rigid alignment from the homogeneous moment matrix [...,4,4]
+    M = sum_i w_i [p_i;1][q_i;1]^T (p = src, q = dst) -> (R, t).
+    H = sum w q p^T - Sq Sp^T / Sw. solver: 'polar' (`rotation_polar3`,
+    always a proper rotation) or 'svd' (with the det-sign correction
+    unless `allow_reflection`)."""
+    if solver not in ("polar", "svd"):
+        raise ValueError(f"solver {solver!r}: expected 'polar' or 'svd'")
+    sw = torch.clamp_min(M[..., 3, 3], 1e-12)[..., None]
+    sp = M[..., :3, 3]
+    sq = M[..., 3, :3]
+    spq = M[..., :3, :3].transpose(-1, -2)      # sum w q p^T
+    src_c = sp / sw
+    dst_c = sq / sw
+    H = spq - sq[..., :, None] * sp[..., None, :] / sw[..., None]
+    if solver == "polar":
+        R = rotation_polar3(H)
+    else:
+        U, _, Vt = torch.linalg.svd(H)
+        R = U @ Vt
+        if not allow_reflection:
+            d = torch.linalg.det(R)
+            S = torch.diag_embed(torch.stack(
+                [torch.ones_like(d), torch.ones_like(d), d], dim=-1))
+            R = U @ S @ Vt
+    t = dst_c - (R @ src_c[..., None])[..., 0]
+    return R, t
+
+
+def procrustes_transform(src: torch.Tensor, dst: torch.Tensor,
+                         weights: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+    """`weighted_procrustes` as a [...,4,4] homogeneous transform."""
+    R, t = weighted_procrustes(src, dst, weights)
+    return se3.make_transform(R, t)

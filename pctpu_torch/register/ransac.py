@@ -1,5 +1,8 @@
-"""Batched RANSAC global registration from feature correspondences (port
-of `pctpu/register/ransac.py:30-56, 161-271`).
+"""RANSAC global registration from feature correspondences (port of
+`pctpu/register/ransac.py`): the batched `ransac_registration_batch`, the
+single-pair `ransac_registration` (the batch code at B = 1, as the
+reference's two functions compute the same math) and the
+confidence-gated `ransac_registration_adaptive`.
 
 Every hypothesis is sampled, solved (closed-form triad rotation), checked
 (edge-length ratio, non-degenerate triangle) and scored at once; the
@@ -7,14 +10,18 @@ whole [H,M] residual matrix is one [H,16]x[16,M] product per pair.
 
 Draws: `jax.random` cannot be reproduced in PyTorch, so the sampler is
 injectable — `sampler(nv [B] int, H) -> [B,H,3] int` positions in
-[0, nv). The default draws uniformly from a `torch.Generator`."""
+[0, nv) (B = 1 for the single-pair functions; the adaptive loop calls it
+once per batch of hypotheses). The default draws uniformly from a
+`torch.Generator`."""
 from __future__ import annotations
 
+import math
 from typing import Callable, NamedTuple, Optional
 
 import torch
 
 from pctpu_torch.core import se3
+from pctpu_torch.device import f32_square
 from pctpu_torch.ops.eigh3 import _cross
 from pctpu_torch.ops.gather import _flat_row_gather
 from pctpu_torch.register.procrustes import weighted_procrustes
@@ -158,3 +165,97 @@ def ransac_registration_batch(src_pts: torch.Tensor, dst_pts: torch.Tensor,
     T = se3.make_transform(R, t)
     inliers = inlier_mask.sum(dim=1, dtype=torch.int32)
     return RansacResult(T, inliers, inlier_mask, inliers / n_valid)
+
+
+def _squeeze(r: RansacResult) -> RansacResult:
+    return RansacResult(*(f[0] for f in r))
+
+
+def ransac_registration(src_pts: torch.Tensor, dst_pts: torch.Tensor,
+                        corr_valid: Optional[torch.Tensor] = None,
+                        sampler: Optional[Sampler] = None,
+                        dist_thresh: float = 4.0, edge_ratio: float = 0.9,
+                        num_hypotheses: int = 8192,
+                        refine: bool = True) -> RansacResult:
+    """src_pts/dst_pts [M,3] matched pairs (row i of src corresponds to
+    row i of dst) -> the best rigid transform src -> dst, unbatched.
+    Checkers: 3-point samples, edge-length ratio >= edge_ratio both ways,
+    inlier distance < dist_thresh. `sampler` defaults to a
+    `torch.Generator` seeded 0 on the points' device."""
+    m = src_pts.shape[0]
+    if corr_valid is None:
+        corr_valid = torch.ones((m,), dtype=torch.bool, device=src_pts.device)
+    if sampler is None:
+        sampler = generator_sampler(
+            torch.Generator(device=src_pts.device).manual_seed(0))
+    return _squeeze(ransac_registration_batch(
+        src_pts[None], dst_pts[None], corr_valid[None], sampler,
+        dist_thresh=dist_thresh, edge_ratio=edge_ratio,
+        num_hypotheses=num_hypotheses, refine=refine))
+
+
+class AdaptiveRansacResult(NamedTuple):
+    T: torch.Tensor
+    inliers: torch.Tensor
+    inlier_mask: torch.Tensor
+    fitness: torch.Tensor
+    hypotheses_consumed: int   # host int: lottery tickets actually played
+
+
+def ransac_registration_adaptive(src_pts: torch.Tensor,
+                                 dst_pts: torch.Tensor,
+                                 corr_valid: Optional[torch.Tensor] = None,
+                                 sampler: Optional[Sampler] = None,
+                                 dist_thresh: float = 4.0,
+                                 edge_ratio: float = 0.9,
+                                 batch_hypotheses: int = 8192,
+                                 max_iterations: int = 100000,
+                                 confidence: float = 0.999,
+                                 refine: bool = True
+                                 ) -> AdaptiveRansacResult:
+    """Confidence-gated RANSAC: batches of `batch_hypotheses` (one
+    `ransac_registration` each, one `sampler` call each) until
+    k >= log(1 - confidence) / log(1 - w^3), w the best fitness so far,
+    or `max_iterations` hypotheses. The reference draws batch i with
+    `fold_in(key, i)`; a test's sampler replays those draws in order."""
+    m = src_pts.shape[0]
+    dev = src_pts.device
+    if corr_valid is None:
+        corr_valid = torch.ones((m,), dtype=torch.bool, device=dev)
+    if sampler is None:
+        sampler = generator_sampler(torch.Generator(device=dev).manual_seed(0))
+    n_valid = max(int(corr_valid.sum()), 1)
+
+    best = None
+    consumed = 0
+    while consumed < max_iterations:
+        r = ransac_registration(src_pts, dst_pts, corr_valid, sampler,
+                                dist_thresh=dist_thresh,
+                                edge_ratio=edge_ratio,
+                                num_hypotheses=batch_hypotheses,
+                                refine=False)
+        consumed += batch_hypotheses
+        if best is None or int(r.inliers) > int(best.inliers):
+            best = r
+        w = min(float(best.inliers) / n_valid, 1.0 - 1e-9)
+        p_good = w ** 3
+        if p_good >= 1.0 - 1e-12:
+            break
+        if p_good <= 0.0:
+            continue   # zero inliers so far: no confidence bound yet
+        needed = math.log(max(1.0 - confidence, 1e-300)) / math.log(
+            1.0 - p_good)
+        if consumed >= needed:
+            break
+
+    T, inlier_mask = best.T, best.inlier_mask
+    if refine:
+        src_f, dst_f = src_pts.float(), dst_pts.float()
+        thresh2 = f32_square(dist_thresh)
+        R, t = weighted_procrustes(src_f, dst_f, inlier_mask.float())
+        err2 = torch.sum((src_f @ R.T + t - dst_f) ** 2, dim=-1)
+        inlier_mask = (err2 < thresh2) & corr_valid
+        T = se3.make_transform(R, t)
+    inliers = inlier_mask.sum(dtype=torch.int32)
+    return AdaptiveRansacResult(T, inliers, inlier_mask,
+                                inliers / float(n_valid), consumed)

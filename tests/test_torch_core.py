@@ -55,7 +55,12 @@ def test_port_imports_no_jax_or_pctpu():
     work: the test process imports JAX already.)"""
     files = sorted((REPO / "pctpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
-    assert len(files) > 15
+    names = {str(f.relative_to(REPO)) for f in files}
+    for module in ("core/io.py", "ops/normals.py", "ops/knn.py",
+                   "ops/pallas_banded.py", "features/fpfh.py",
+                   "parallel/pair_sweep.py", "register/evaluate.py",
+                   "register/icp.py", "register/pipeline.py"):
+        assert f"pctpu_torch/{module}" in names, module
     bad = [(str(f.relative_to(REPO)), mod) for f in files
            for mod in _imports(f) if mod.split(".")[0] in FORBIDDEN]
     assert not bad, bad
@@ -64,7 +69,9 @@ def test_port_imports_no_jax_or_pctpu():
 def test_entry_points_raise_without_cuda(monkeypatch):
     """No silent CPU fallback: without a card and without device='cpu'
     an entry point raises."""
-    from pctpu_torch.register.pipeline import register_pairs
+    from pctpu_torch.parallel.pair_sweep import batched_icp_mega
+    from pctpu_torch.register import icp
+    from pctpu_torch.register.pipeline import register_pair, register_pairs
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     pts = np.zeros((5, 3), np.float32)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -73,6 +80,16 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     batch = PointCloud(cloud.points[None], cloud.mask[None])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         register_pairs(batch, batch)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        register_pair(cloud, cloud)
+    m = cloud.mask
+    for loop in (icp.icp_fixed_iters_banded_mega, icp.icp_fixed_iters_banded,
+                 icp.icp_fixed_iters_banded_fused,
+                 icp.icp_fixed_iters_banded_fused_v2, icp.icp_fixed_iters):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            loop(cloud.points, m, cloud.points, m)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        batched_icp_mega(batch.points, batch.mask, batch.points, batch.mask)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tdevice.resolve_device("cuda")
     assert tdevice.resolve_device("cpu").type == "cpu"

@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
 card. Every test here needs a CUDA device and skips without one (the
-kernels have no CPU mode). This file imports nothing of JAX, so on a
-machine without JAX it runs without the repo's conftest:
+kernels have no CPU mode); all carry the `cuda` marker. This file imports
+nothing of JAX, so on a machine without JAX it runs without the repo's
+conftest:
 
     python -m pytest --noconftest tests/test_torch_cuda.py
 """
@@ -11,9 +12,12 @@ import torch
 
 from pctpu_torch.features import pallas_fpfh
 from pctpu_torch.features.fpfh_dense import normals_radius_dense
-from pctpu_torch.ops import pallas_icp_mega, pallas_nn
+from pctpu_torch.ops import pallas_banded, pallas_icp_mega, pallas_nn
 from pctpu_torch.ops.voxel import voxel_downsample_capped
+from pctpu_torch.register import icp
 from pctpu_torch.register.icp import icp_fixed_iters_banded_mega_batch
+
+pytestmark = pytest.mark.cuda
 
 
 @pytest.fixture
@@ -120,9 +124,131 @@ def test_icp_mega_kernel_matches_plain(gen, cuda, window_blocks):
     kw = dict(coarse_iters=6, polish_iters=1, block=256,
               window_blocks=window_blocks, query_tile=512)
     args = [_t(x, cuda) for x in (src, mask, dst, mask)]
-    before = pallas_icp_mega.icp_mega.launches
+    before = pallas_icp_mega.icp_mega_batch.launches
     kern = icp_fixed_iters_banded_mega_batch(*args, **kw)
     torch.cuda.synchronize()
-    assert pallas_icp_mega.icp_mega.launches == before + 2
+    assert pallas_icp_mega.icp_mega_batch.launches == before + 2
     plain = icp_fixed_iters_banded_mega_batch(*[a.cpu() for a in args], **kw)
+    torch.testing.assert_close(kern.cpu(), plain, rtol=0, atol=1e-4)
+
+
+def _pair(gen, n, dev):
+    src = gen.uniform(-20, 20, (n, 3)).astype(np.float32)
+    src[:, 0] *= 3.0
+    a = gen.normal(scale=0.02, size=3)
+    R = np.array([[1, -a[2], a[1]], [a[2], 1, -a[0]], [-a[1], a[0], 1]])
+    dst = (src @ R.T + [0.2, -0.1, 0.05]).astype(np.float32)
+    mask = gen.uniform(size=n) > 0.05
+    return [_t(x, dev) for x in (src, mask, dst, mask)]
+
+
+@pytest.mark.parametrize("window_blocks", [1, 8])
+def test_icp_mega_single_kernel_matches_plain(gen, cuda, window_blocks):
+    """Kernel 5 (one pair, B = 1) through the single-pair ICP: two
+    launches; T within 1e-4 of the plain version (on the CPU)."""
+    args = _pair(gen, 2000, cuda)
+    kw = dict(coarse_iters=5, polish_iters=1, block=256,
+              window_blocks=window_blocks, query_tile=512)
+    before = pallas_icp_mega.icp_mega.launches
+    batch_before = pallas_icp_mega.icp_mega_batch.launches
+    kern = icp.icp_fixed_iters_banded_mega(*args, **kw)
+    torch.cuda.synchronize()
+    assert pallas_icp_mega.icp_mega.launches == before + 2
+    assert pallas_icp_mega.icp_mega_batch.launches == batch_before
+    plain = icp.icp_fixed_iters_banded_mega(*[a.cpu() for a in args],
+                                            device="cpu", **kw)
+    torch.testing.assert_close(kern.cpu(), plain, rtol=0, atol=1e-4)
+
+
+def _banded_case(gen, dev, n=3000, m=1000, block=256):
+    db = gen.uniform(0, 10, (n, 3)).astype(np.float32)
+    db[:, 0] *= 10
+    dmask = _t(gen.uniform(size=n) > 0.2, dev)
+    q = (db[:m] + gen.normal(scale=0.05, size=(m, 3))).astype(np.float32)
+    q = q[np.argsort(q[:, 0])]
+    qmask = _t(gen.uniform(size=m) > 0.1, dev)
+    bdb = pallas_banded.build_banded(_t(db, dev), dmask, block=block)
+    return bdb, _t(q, dev), qmask
+
+
+def test_nearest_banded_kernel_matches_plain(gen, cuda):
+    """K6: idx and d2 equal to the plain version's (the same direct
+    differences in the same order, the same tie rule)."""
+    bdb, q, _ = _banded_case(gen, cuda)
+    kw = dict(block=256, window_blocks=3, query_tile=128)
+    before = pallas_banded.nearest_banded.launches
+    d2k, idxk = pallas_banded.nearest_banded(bdb, q, **kw)
+    assert pallas_banded.nearest_banded.launches == before + 1
+    args = pallas_banded._nearest_banded_args(bdb, q, **kw)
+    d2p, sidx = pallas_banded.nearest_banded_plain(*args, 256, 3, 128)
+    torch.cuda.synchronize()
+    assert torch.equal(d2k, d2p[:q.shape[0]])
+    assert torch.equal(idxk, bdb.order[sidx[:q.shape[0]].long()])
+
+
+def _rel(a, b):
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def test_icp_moments_banded_kernel_matches_plain(gen, cuda):
+    """K7: per-tile f64 moments within 1e-12 relative of the plain
+    version's, the rounded [4,4] within 1e-6 relative."""
+    bdb, q, qmask = _banded_case(gen, cuda)
+    kw = dict(block=256, window_blocks=2, query_tile=128, tiles_per_step=2)
+    before = pallas_banded.icp_moments_banded.launches
+    mk = pallas_banded.icp_moments_banded(bdb, q, qmask, dist_thresh=2.0,
+                                          **kw)
+    assert pallas_banded.icp_moments_banded.launches == before + 1
+    args = pallas_banded._icp_moments_banded_args(bdb, q, qmask, **kw)
+    pk = pallas_banded._launch_icp_moments_banded(*args, 256, 2, 128, 4.0)
+    pp = pallas_banded.icp_moments_banded_plain(*args, 256, 2, 128, 4.0)
+    torch.cuda.synchronize()
+    assert _rel(pk, pp) <= 1e-12
+    assert _rel(mk, pallas_banded._sum_partials(pp)) <= 1e-6
+    assert float(mk[3, 3]) > 100
+
+
+def test_icp_moments_banded_v2_kernel_matches_plain(gen, cuda):
+    """K8: the transform and the window base inside the kernel; per-tile
+    moments within 1e-12 relative, the [4,4] within 1e-6 relative."""
+    bdb, q, qmask = _banded_case(gen, cuda, m=1024)
+    src3, spen, centers = icp._query_layout(q[None], qmask[None], 128)
+    T = torch.eye(4, device=cuda)
+    T[:3, 3] = torch.tensor([0.05, -0.02, 0.01], device=cuda)
+    kw = dict(block=256, window_blocks=3, query_tile=128)
+    before = pallas_banded.icp_moments_banded_v2.launches
+    mk = pallas_banded.icp_moments_banded_v2(
+        bdb, bdb.pen2.T, src3[0], spen[0], centers[0], T, dist_thresh=2.0,
+        **kw)
+    assert pallas_banded.icp_moments_banded_v2.launches == before + 1
+    args = pallas_banded._icp_moments_banded_v2_args(
+        bdb, bdb.pen2.T, src3[0], spen[0], centers[0], T, **kw)
+    pk = pallas_banded._launch_icp_moments_banded_v2(*args, 256, 3, 128, 4.0)
+    pp = pallas_banded.icp_moments_banded_v2_plain(*args, 256, 3, 128, 4.0)
+    torch.cuda.synchronize()
+    assert _rel(pk, pp) <= 1e-12
+    assert _rel(mk, pallas_banded._sum_partials(pp)) <= 1e-6
+    assert float(mk[3, 3]) > 100
+
+
+@pytest.mark.parametrize("loop", ["icp_fixed_iters_banded",
+                                    "icp_fixed_iters_banded_fused",
+                                    "icp_fixed_iters_banded_fused_v2"])
+def test_banded_loops_match_plain(gen, cuda, loop):
+    """K6, K7, K8 through their ICP loops: one launch per iteration; T
+    within 1e-4 of the plain versions' (on the CPU)."""
+    args = _pair(gen, 3000, cuda)
+    kw = dict(iters=6, dist_thresh=3.0, block=512, window_blocks=2,
+              query_tile=256)
+    fn = getattr(icp, loop)
+    kern_fn = {"icp_fixed_iters_banded": pallas_banded.nearest_banded,
+               "icp_fixed_iters_banded_fused":
+                   pallas_banded.icp_moments_banded,
+               "icp_fixed_iters_banded_fused_v2":
+                   pallas_banded.icp_moments_banded_v2}[loop]
+    before = kern_fn.launches
+    kern = fn(*args, **kw)
+    torch.cuda.synchronize()
+    assert kern_fn.launches == before + 6
+    plain = fn(*[a.cpu() for a in args], device="cpu", **kw)
     torch.testing.assert_close(kern.cpu(), plain, rtol=0, atol=1e-4)

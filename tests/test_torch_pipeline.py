@@ -145,3 +145,34 @@ def test_register_pairs_matches_jax(scene):
                                   np.asarray(ref.src_voxels))
     assert int(out.num_matches.min()) > 20
     assert out.icp_iters.tolist() == [16, 16]
+
+
+def test_register_pairs_while_matches_jax(scene):
+    """`icp_backend="while"`: each pair's convergence-tested ICP (K1,
+    plain on the CPU) from its RANSAC pose, against the JAX package's
+    `register_pairs`, which takes the same while-loop ICP on the CPU. The
+    front ends differ (fused FPFH here, dense there), so the poses agree
+    within the bound of `test_register_pairs_matches_jax`; the iteration
+    counts come from the same convergence test."""
+    src, dst, gts = scene
+    b, n = src.shape[:2]
+    mask = np.ones((b, n), bool)
+    keys = jax.random.split(jax.random.PRNGKey(0), b)
+    cfg = dict(CFG, icp_backend="while")
+    ref = jpipe.register_pairs(
+        JCloud(jnp.asarray(src), jnp.asarray(mask)),
+        JCloud(jnp.asarray(dst), jnp.asarray(mask)), keys=keys,
+        cfg=jpipe.RegistrationConfig(**cfg))
+    out = tpipe.register_pairs(
+        PointCloud(torch.from_numpy(src), torch.from_numpy(mask)),
+        PointCloud(torch.from_numpy(dst), torch.from_numpy(mask)),
+        cfg=tpipe.RegistrationConfig(**cfg), sampler=_jax_sampler(keys),
+        device="cpu")
+    rte, rre = se3.pose_diff_rte_rre(out.T, torch.from_numpy(gts))
+    assert float(rte.max()) < 2.0 and float(rre.max()) < 5.0, (rte, rre)
+    drte, drre = se3.pose_diff_rte_rre(out.T, torch.from_numpy(
+        np.array(ref.T)))
+    assert float(drte.max()) < 0.1 and float(drre.max()) < 0.5, (drte, drre)
+    assert out.icp_iters.shape == (b,)
+    assert int(out.icp_iters.min()) >= 1
+    assert int(out.icp_iters.max()) <= tpipe.RegistrationConfig().icp_max_iters
