@@ -16,10 +16,19 @@ hand-written kernel against its plain PyTorch version:
      K6 `nearest_banded`, K7 `icp_moments_banded`, K8
      `icp_moments_banded_v2`;
   P6 `register_pair` on one 35 degree pair of P1, default config:
-     kernel 5 and K1.
+     kernel 5 and K1;
+  P7 `cls-msg` serving at the MODELNET40_CLS_MSG shapes (B 32, 4,096
+     points x 6 channels, 40 classes): `evaluate` over 4 batches
+     ("requests"), port-initialised weights from --seed; per forward
+     kernel 11 `fps_pallas_batched` x2 and kernel 12 `ball_group` x4;
+  P8 `cls-ssg` serving, the same data: kernel 11 x2, kernel 12 x2;
+  P9 `entry()`, the flagship `cls-msg` forward at B 4 x 1,024 points,
+     then kernel 10 `fps_pallas` on each of its 4 clouds.
 
-Every path takes its clouds from one scan: a synthetic 124,668-point
-ray-cast LiDAR scan made from --seed, or the velodyne file given by --scan.
+P1-P6 take their clouds from one scan: a synthetic 124,668-point ray-cast
+LiDAR scan made from --seed, or the velodyne file given by --scan. P7 and
+P8 take synthetic ModelNet-style clouds made from --seed: points and
+normals sampled on the surface of a random box, cylinder or sphere.
 
 Phases:
   1. environment: versions, the card's name and power limit, precision
@@ -27,12 +36,15 @@ Phases:
   2. each path, with every launch counter set to 0 just before it and
      read just after: each must launch exactly its kernels; its result
      must pass its gate (RTE < 2 m and RRE < 5 deg, workload 4 also
-     RTE < 0.05 m); its speed (CUDA events);
+     RTE < 0.05 m; the classifiers: finite logits of the right shape,
+     cls-ssg's within 1e-4 of the CPU's on 2 clouds); its speed (CUDA
+     events);
   3. on the inputs each path gave its kernels (recorded in a run before
      the counted one, or in the counted run itself), each kernel against
      its plain version with the stated tolerance, timed beside its bound;
      and each ICP path run once more with its kernels swapped for their
-     plain versions: the poses agree within 1e-4;
+     plain versions: the poses agree within 1e-4 (the classifiers' logits
+     within 1e-5);
   4. one JSON line of per-kernel numbers, the card's line, and last the
      line {"ok": true, "device": {...}}.
 
@@ -44,6 +56,7 @@ Full results (profile included) are also written to build/chip_smoke.json.
 """
 import argparse
 import contextlib
+import copy
 import json
 import subprocess
 import sys
@@ -66,7 +79,10 @@ W2 = dict(coarse_iters=28, polish_iters=2, dist_thresh=5.0, block=512,
 BANDED = dict(iters=30, dist_thresh=5.0, block=2048, window_blocks=2,
               query_tile=512)
 KERNELS = ("nn1", "spfh", "wsum", "icp_mega_batch", "icp_mega",
-           "nearest_banded", "icp_moments_banded", "icp_moments_banded_v2")
+           "nearest_banded", "icp_moments_banded", "icp_moments_banded_v2",
+           "fps_pallas", "fps_pallas_batched", "ball_group")
+CLS_REQUESTS, CLS_BATCH, CLS_POINTS = 4, 32, 4096   # MODELNET40_CLS_*
+ENTRY_FPS_M = 512                   # SA1 of the entry forward
 
 
 # ---------------------------------------------------------------------------
@@ -162,6 +178,46 @@ def perturb(pts, rng, rotvec, trans, noise=0.01):
     T = np.eye(4, dtype=np.float32)
     T[:3, :3], T[:3, 3] = R, t
     return dst, T
+
+
+def modelnet_like(rng, count, n_points):
+    """Synthetic ModelNet-style clouds: (clouds [count,N,6] f32 of xyz and
+    unit normals, labels [count] int). Each is the surface of a random box,
+    cylinder or sphere (label 0, 1, 2) with random extents, sampled by
+    area and randomly rotated, its xyz normalised by `pc_normalize_np`."""
+    from scipy.spatial.transform import Rotation
+
+    from pctpu_torch.nn.data import pc_normalize_np
+    clouds, labels = [], rng.integers(0, 3, count)
+    for kind in labels:
+        a = rng.uniform(0.3, 1.0, 3)
+        u = rng.uniform(-1, 1, (n_points, 3))
+        if kind == 0:           # box: a face per point, by area
+            area = np.array([a[1] * a[2], a[0] * a[2], a[0] * a[1]])
+            ax = rng.choice(3, n_points, p=area / area.sum())
+            sgn = rng.choice([-1.0, 1.0], n_points)
+            p = u * a
+            p[np.arange(n_points), ax] = sgn * a[ax]
+            nrm = np.zeros_like(p)
+            nrm[np.arange(n_points), ax] = sgn
+        elif kind == 1:         # cylinder along z: side or caps, by area
+            r, h = a[0], a[2]
+            side = rng.uniform(size=n_points) < h / (h + r)
+            th = rng.uniform(0, 2 * np.pi, n_points)
+            rad = np.where(side, r, r * np.sqrt(rng.uniform(size=n_points)))
+            z = np.where(side, h * u[:, 2], h * np.sign(u[:, 2]))
+            p = np.stack([rad * np.cos(th), rad * np.sin(th), z], 1)
+            nrm = np.where(side[:, None],
+                           np.stack([np.cos(th), np.sin(th), 0 * th], 1),
+                           np.stack([0 * th, 0 * th, np.sign(u[:, 2])], 1))
+        else:                   # sphere
+            nrm = rng.normal(size=(n_points, 3))
+            nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
+            p = a[0] * nrm
+        R = Rotation.random(random_state=rng).as_matrix()
+        clouds.append(np.concatenate([pc_normalize_np(p @ R.T), nrm @ R.T],
+                                     axis=1))
+    return np.stack(clouds).astype(np.float32), labels
 
 
 # ---------------------------------------------------------------------------
@@ -463,6 +519,77 @@ def check_banded(b, calls, torch):
     return out
 
 
+def fps_work(args):
+    """(ops, bytes) of one FPS launch (kernels 10, 11): about 12 flops per
+    point and step (3 sub, 3 mul, 2 add, the min, the score select and the
+    argmax's two compares) over the m - 1 steps; the cloud and its mask read
+    once, the picks written once."""
+    pts, m, elig = args
+    b, n, _ = pts.shape
+    return 12.0 * b * n * (m - 1), nbytes(pts, elig) + b * m * 4
+
+
+def check_fps(pf, calls, torch):
+    """Kernels 10, 11 (`_launch_fps`) vs `fps_plain` on recorded
+    launches: idx identical."""
+    for args in calls:
+        k, p = pf._launch_fps(*args), pf.fps_plain(*args)
+        torch.cuda.synchronize()
+        need(torch.equal(k, p), "fps idx", tuple(args[0].shape), args[1])
+
+
+def check_ball_group(bg, bq, gather, calls, torch):
+    """Kernel 12 (`_launch_ball_group`) vs `ball_group_plain` on recorded
+    launches: idx equal, grouped max |err| <= 1e-6. Also vs the unfused
+    composition group_points(packed, ball_query(...)) - centre: equal at
+    every centre, except where the two distance formulas (ball_query's is
+    a matmul, the kernel's an elementwise expansion) round a point within
+    1e-6 of r^2 to opposite sides; such centres are counted. Returns (max
+    err, boundary centres, per-launch (ops, bytes)): ~10 flops per
+    candidate the scan must test (up to the nsample-th hit, or all N), the
+    inputs read once, grouped rows and idx written once."""
+    err, boundary, work = 0.0, 0, []
+    for args in calls:
+        centers, packed, radius, nsample, pmask, sub_xyz = args
+        gk, ik = bg._launch_ball_group(*args)
+        gp, ip = bg.ball_group_plain(*args)
+        torch.cuda.synchronize()
+        need(torch.equal(ik, ip), "ball_group idx", tuple(packed.shape))
+        e = float((gk - gp).abs().max())
+        need(e <= 1e-6, "ball_group rows", e)
+        err = max(err, e)
+        idx_u, _ = bq.ball_query(centers, packed[..., :3], radius, nsample,
+                                 pmask)
+        comp = gather.group_points(packed, idx_u)
+        if sub_xyz:
+            comp[..., :3] -= centers[:, :, None]
+        same = (idx_u == ik).all(-1)
+        need(torch.equal(gk[same], comp[same]), "ball_group vs composition")
+        if not bool(same.all()):
+            bi, mi = torch.nonzero(~same, as_tuple=True)
+            d2 = ((packed[bi, :, :3].double()
+                   - centers[bi, mi, None].double()) ** 2).sum(-1)
+            r2 = float(torch.tensor(radius, dtype=torch.float32)) ** 2
+            need(bool(((d2 - r2).abs() <= 1e-6).any(-1).all()),
+                 "ball_group vs composition away from the boundary")
+            boundary += int(bi.numel())
+        full = ik[..., -1] != ik[..., 0]        # nsample hits were found
+        scanned = float(torch.where(full, ik[..., -1].long() + 1,
+                                    packed.shape[1]).sum())
+        work.append((10.0 * scanned, nbytes(centers, packed, pmask, gk, ik)))
+    return err, boundary, work
+
+
+def time_launches(launch, plain, calls, work):
+    """Kernel, plain and bound time of recorded launches together; `work`
+    holds each launch's (ops, bytes)."""
+    ms = cuda_ms(lambda: [launch(*a) for a in calls], reps=5)
+    plain_ms = cuda_ms(lambda: [plain(*a) for a in calls], reps=1, warmup=0)
+    bms, by = bound(sum(w[1] for w in work), sum(w[0] for w in work))
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                library_ms=None)
+
+
 def profile(name, fn, torch, top=12):
     """Device time by kernel over one call of a path (torch.profiler), and
     the device's busy share of the call's wall time. Returns a dict, or
@@ -523,8 +650,15 @@ def main(argv=None):
         from pctpu_torch import kernels
         from pctpu_torch.core import io, se3
         from pctpu_torch.core.cloud import PointCloud
+        from pctpu_torch import entry as pentry
         from pctpu_torch.features import pallas_fpfh
-        from pctpu_torch.ops import pallas_banded, pallas_icp_mega, pallas_nn
+        from pctpu_torch.models import pointnet2
+        from pctpu_torch.nn import config as nncfg
+        from pctpu_torch.nn import fit
+        from pctpu_torch.nn import train as T
+        from pctpu_torch.ops import (ball_query, gather, pallas_ballgroup,
+                                     pallas_banded, pallas_fps,
+                                     pallas_icp_mega, pallas_nn)
         from pctpu_torch.parallel import pair_sweep
         from pctpu_torch.register import icp, pipeline
         from pctpu_torch.register.ransac import generator_sampler
@@ -540,7 +674,10 @@ def main(argv=None):
                "icp_mega": mega.icp_mega,
                "nearest_banded": banded.nearest_banded,
                "icp_moments_banded": banded.icp_moments_banded,
-               "icp_moments_banded_v2": banded.icp_moments_banded_v2}
+               "icp_moments_banded_v2": banded.icp_moments_banded_v2,
+               "fps_pallas": pallas_fps.fps_pallas,
+               "fps_pallas_batched": pallas_fps.fps_pallas_batched,
+               "ball_group": pallas_ballgroup.ball_group}
     paths = Paths(counted, torch)
     report, rows, metrics = {}, {}, {}
 
@@ -800,6 +937,111 @@ def main(argv=None):
           f"m, RRE {rre:.4f} deg; {p6_ms:.1f} ms per call; T vs plain "
           f"{metrics['register_pair']['loop_err_vs_plain']:.1e}")
 
+    # ---- P7, P8 classification serving: kernels 11, 12 -------------------
+    clouds, labels = modelnet_like(np.random.default_rng([args.seed, 7]),
+                                   CLS_REQUESTS * CLS_BATCH, CLS_POINTS)
+    dataset = list(zip(clouds, labels))
+    pc0, lab0 = on_dev(clouds[:CLS_BATCH], labels[:CLS_BATCH])
+    r_fps, r_bg = {}, {}
+    for name, preset, n_bg in (("cls_msg", nncfg.MODELNET40_CLS_MSG, 4),
+                               ("cls_ssg", nncfg.MODELNET40_CLS_SSG, 2)):
+        model = T.build_model(preset, device=dev, generator=torch.Generator(
+            ).manual_seed(args.seed))
+        ev = T.make_eval_step(model, dev)
+        ev(pc0, lab0)                                           # warm-up
+        with Recorder(pallas_fps, "_launch_fps") as rf, \
+                Recorder(pallas_ballgroup, "_launch_ball_group") as rg:
+            res = paths.run(name, lambda: fit.evaluate(
+                model, dataset, CLS_BATCH, device=dev),
+                {"fps_pallas_batched": 2 * CLS_REQUESTS,
+                 "ball_group": n_bg * CLS_REQUESTS})
+        r_fps[name], r_bg[name] = rf.calls, rg.calls
+        need(np.isfinite(res["loss"]) and 0.0 <= res["acc"] <= 1.0, name, res)
+        logits = ev(pc0, lab0)["logits"]
+        need(logits.shape == (CLS_BATCH, preset.num_classes)
+             and bool(torch.isfinite(logits).all()), name, "logits")
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(lambda: ev(pc0, lab0), reps=5)
+        peak = torch.cuda.max_memory_allocated()
+        # the same batch with both kernels swapped for their plain versions
+        with swapped(pallas_fps, "_launch_fps", pallas_fps.fps_plain), \
+                swapped(pallas_ballgroup, "_launch_ball_group",
+                        pallas_ballgroup.ball_group_plain):
+            dlog = float((ev(pc0, lab0)["logits"] - logits).abs().max())
+        need(dlog <= 1e-5, name, "logits vs plain versions", dlog)
+        # 2 clouds on the card and on the CPU, every scale through kernel
+        # 12 / its plain version (so both select the same neighbours): the
+        # logits within 1e-4 (cuBLAS and the CPU's BLAS sum in other orders)
+        cpu_model = copy.deepcopy(model).cpu()
+        with swapped(pointnet2, "fused_ok", lambda *a: True), \
+                torch.no_grad():
+            dcpu = float((model(pc0[:2]).cpu() - cpu_model(pc0[:2].cpu())
+                          ).abs().max())
+        need(dcpu <= 1e-4, name, "logits vs the CPU", dcpu)
+        metrics[name] = dict(
+            requests=CLS_REQUESTS, batch=CLS_BATCH, points=CLS_POINTS,
+            loss=res["loss"], acc=res["acc"], batch_ms=ms,
+            clouds_per_s=CLS_BATCH / (ms / 1e3), peak_mem_bytes=peak,
+            logits_err_vs_plain=dlog, logits_err_vs_cpu=dcpu)
+        print(f"P{7 if name == 'cls_msg' else 8} {name} {CLS_REQUESTS} x "
+              f"{CLS_BATCH} x {CLS_POINTS} pts: loss {res['loss']:.4f}, acc "
+              f"{res['acc']:.4f} (random weights); {ms:.2f} ms per batch = "
+              f"{metrics[name]['clouds_per_s']:.1f} clouds/s; peak "
+              f"{peak / 2**30:.2f} GiB; logits vs plain {dlog:.1e}, vs CPU "
+              f"{dcpu:.1e}")
+        report["profile_" + name] = profile(name, lambda: ev(pc0, lab0),
+                                            torch)
+        del model, cpu_model, ev
+
+    # ---- P9 entry(): the flagship forward, then kernel 10 ----------------
+    fwd, (pc_e,) = pentry.entry()
+    with Recorder(pallas_fps, "_launch_fps") as rf9, \
+            Recorder(pallas_ballgroup, "_launch_ball_group") as rg9:
+        logits9 = paths.run("entry", lambda: fwd(pc_e),
+                            {"fps_pallas_batched": 2, "ball_group": 4})
+    need(logits9.shape == (4, 40) and bool(torch.isfinite(logits9).all()),
+         "entry logits")
+    entry_ms = cuda_ms(lambda: fwd(pc_e), reps=5)
+    xyz_e = pc_e[..., :3].contiguous()
+    with Recorder(pallas_fps, "_launch_fps") as rf10:
+        singles = paths.run("fps_pallas", lambda: [
+            pallas_fps.fps_pallas(xyz_e[i], ENTRY_FPS_M) for i in range(4)],
+            {"fps_pallas": 4})
+    need(rf9.calls[0][1] == ENTRY_FPS_M, "entry SA1 FPS", rf9.calls[0][1])
+    rows_b = pallas_fps._launch_fps(*rf9.calls[0])
+    need(all(torch.equal(singles[i], rows_b[i]) for i in range(4)),
+         "fps_pallas vs the batched rows")
+    metrics["entry"] = dict(call_ms=entry_ms)
+    print(f"P9 entry (cls-msg, 4 x 1024 pts): {entry_ms:.2f} ms per forward; "
+          f"fps_pallas on its 4 clouds = the batched rows")
+
+    # ---- kernels 10-12 against their plain versions -----------------------
+    check_fps(pallas_fps, r_fps["cls_msg"] + r_fps["cls_ssg"] + rf9.calls
+              + rf10.calls, torch)
+    bg_err, bg_boundary, bg_work = check_ball_group(
+        pallas_ballgroup, ball_query, gather,
+        r_bg["cls_msg"] + r_bg["cls_ssg"] + rg9.calls, torch)
+    print(f"kernels 10-12 vs plain: FPS idx identical on "
+          f"{sum(map(len, r_fps.values())) + len(rf9.calls) + 4} launches; "
+          f"ball_group max |err| {bg_err:.1e}, {bg_boundary} centres with "
+          f"a boundary point vs ball_query")
+    per_fwd = slice(0, 2)       # one cls-msg forward's launches
+    rows["fps_pallas_batched"] = dict(max_abs_err=0.0, **time_launches(
+        pallas_fps._launch_fps, pallas_fps.fps_plain,
+        r_fps["cls_msg"][per_fwd], [fps_work(a) for a in
+                                    r_fps["cls_msg"][per_fwd]]))
+    rows["fps_pallas"] = dict(max_abs_err=0.0, **time_launches(
+        pallas_fps._launch_fps, pallas_fps.fps_plain, rf10.calls,
+        [fps_work(a) for a in rf10.calls]))
+    rows["ball_group"] = dict(
+        max_abs_err=bg_err, boundary_centres=bg_boundary, **time_launches(
+            pallas_ballgroup._launch_ball_group,
+            pallas_ballgroup.ball_group_plain, r_bg["cls_msg"][:4],
+            bg_work[:4]))
+    rows["ball_group"]["per_launch_ms"] = [
+        cuda_ms(lambda a=a: pallas_ballgroup._launch_ball_group(*a), reps=5)
+        for a in r_bg["cls_msg"][:4]]
+
     # ---- kernel 5, K6-K8 against their plain versions --------------------
     w4_cut = [a[:6] + (2,) + a[7:] for a in r_k5w4.calls]   # iters cut to 2
     errs = check_mega(mega, r_k5.calls + w4_cut + r_k5p6.calls, torch)
@@ -844,6 +1086,13 @@ def main(argv=None):
         "icp_moments_banded_v2": ("pctpu_torch/csrc/banded.cu",
                                   "pctpu/ops/pallas_banded.py:321 "
                                   "_moments_kernel_v2"),
+        "fps_pallas": ("pctpu_torch/csrc/fps.cu",
+                       "pctpu/ops/pallas_fps.py:29 _fps_kernel"),
+        "fps_pallas_batched": ("pctpu_torch/csrc/fps.cu",
+                               "pctpu/ops/pallas_fps.py:80 "
+                               "_fps_kernel_batched"),
+        "ball_group": ("pctpu_torch/csrc/ballgroup.cu",
+                       "pctpu/ops/pallas_ballgroup.py:34 _ballgroup_kernel"),
     }
     kern_rows = []
     for name in KERNELS:
@@ -862,7 +1111,9 @@ def main(argv=None):
                   note="ms/plain_ms/bound_ms/library_ms: summed over the "
                        "kernel's recorded launches in one call of its path "
                        "(K1-K4: register_pairs; icp_mega: workload 1; "
-                       "K6-K8: one 30-iteration call); launches: "
+                       "K6-K8: one 30-iteration call; fps_pallas_batched "
+                       "and ball_group: one cls-msg forward at B 32; "
+                       "fps_pallas: its 4 launches in P9); launches: "
                        "summed over the paths")
     print(f"total {report['seconds']:.1f} s")
     (ROOT / "build").mkdir(exist_ok=True)

@@ -59,7 +59,11 @@ def test_port_imports_no_jax_or_pctpu():
     for module in ("core/io.py", "ops/normals.py", "ops/knn.py",
                    "ops/pallas_banded.py", "features/fpfh.py",
                    "parallel/pair_sweep.py", "register/evaluate.py",
-                   "register/icp.py", "register/pipeline.py"):
+                   "register/icp.py", "register/pipeline.py",
+                   "ops/fps.py", "ops/pallas_fps.py", "ops/ball_query.py",
+                   "ops/pallas_ballgroup.py", "models/pointnet2.py",
+                   "models/convert.py", "nn/config.py", "nn/train.py",
+                   "nn/data.py", "nn/fit.py", "entry.py"):
         assert f"pctpu_torch/{module}" in names, module
     bad = [(str(f.relative_to(REPO)), mod) for f in files
            for mod in _imports(f) if mod.split(".")[0] in FORBIDDEN]

@@ -12,7 +12,10 @@ import torch
 
 from pctpu_torch.features import pallas_fpfh
 from pctpu_torch.features.fpfh_dense import normals_radius_dense
-from pctpu_torch.ops import pallas_banded, pallas_icp_mega, pallas_nn
+from pctpu_torch.ops import (pallas_ballgroup, pallas_banded, pallas_fps,
+                             pallas_icp_mega, pallas_nn)
+from pctpu_torch.ops.ball_query import ball_query
+from pctpu_torch.ops.gather import group_points
 from pctpu_torch.ops.voxel import voxel_downsample_capped
 from pctpu_torch.register import icp
 from pctpu_torch.register.icp import icp_fixed_iters_banded_mega_batch
@@ -252,3 +255,99 @@ def test_banded_loops_match_plain(gen, cuda, loop):
     assert kern_fn.launches == before + 6
     plain = fn(*[a.cpu() for a in args], device="cpu", **kw)
     torch.testing.assert_close(kern.cpu(), plain, rtol=0, atol=1e-4)
+
+
+def _surface_clouds(gen, b, n):
+    """Points on unit spheres and boxes, normalised into the unit ball
+    (the density of ModelNet-style clouds), [B,N,3] f32."""
+    out = []
+    for k in range(b):
+        p = gen.normal(size=(n, 3))
+        p /= np.linalg.norm(p, axis=1, keepdims=True)
+        if k % 2:
+            p /= np.abs(p).max(axis=1, keepdims=True)     # a cube's surface
+        p *= gen.uniform(0.5, 1.0, 3)
+        out.append(p / np.linalg.norm(p, axis=1).max())
+    return np.stack(out).astype(np.float32)
+
+
+@pytest.mark.parametrize("b,n,m,masked", [(32, 4096, 512, False),
+                                          (3, 1000, 200, True),
+                                          (2, 20000, 64, True)])
+def test_fps_kernel_matches_plain(gen, cuda, b, n, m, masked):
+    """Kernel 11: idx equal to the plain version's, bit for bit (N = 4096
+    keeps mind in registers and the cloud in shared memory, N = 1000 has
+    a ragged last warp, N = 20000 uses the global-memory paths)."""
+    pts = _t(_surface_clouds(gen, b, n), cuda)
+    mask = _t(gen.uniform(size=(b, n)) > 0.2, cuda) if masked else None
+    before = pallas_fps.fps_pallas_batched.launches
+    k = pallas_fps.fps_pallas_batched(pts, m, mask=mask)
+    torch.cuda.synchronize()
+    assert pallas_fps.fps_pallas_batched.launches == before + 1
+    elig = torch.ones((b, n), dtype=torch.bool, device=cuda) \
+        if mask is None else mask
+    assert torch.equal(k, pallas_fps.fps_plain(pts, m, elig))
+    one = pallas_fps.fps_pallas(pts[1], m, mask=None if mask is None
+                                else mask[1])
+    assert torch.equal(one, k[1])
+
+
+@pytest.mark.parametrize("m,n,c,k,radius", [(512, 4096, 6, 128, 0.4),
+                                            (512, 4096, 6, 16, 0.1),
+                                            (128, 512, 323, 32, 0.2)])
+def test_ball_group_kernel_matches_plain(gen, cuda, m, n, c, k, radius):
+    """Kernel 12 at cls-msg's SA1 and SA2 shapes (B cut to 4): idx equal
+    to the plain version's, grouped rows equal; and the unmasked result
+    equals ball_query + group_points - centre wherever no point lies
+    within 1e-5 of the radius (the two distance formulas round apart)."""
+    b = 4
+    xyz = _surface_clouds(gen, b, n)
+    packed = np.concatenate(
+        [xyz, gen.normal(size=(b, n, c - 3)).astype(np.float32)], axis=-1)
+    centers = xyz[:, :m]
+    packed, centers = _t(packed, cuda), _t(centers, cuda)
+    mask = _t(gen.uniform(size=(b, n)) > 0.1, cuda)
+    for pm in (mask, None):
+        before = pallas_ballgroup.ball_group.launches
+        gk, ik = pallas_ballgroup.ball_group(centers, packed, radius, k,
+                                             points_mask=pm)
+        torch.cuda.synchronize()
+        assert pallas_ballgroup.ball_group.launches == before + 1
+        gp, ip = pallas_ballgroup.ball_group_plain(centers, packed, radius,
+                                                   k, points_mask=pm)
+        assert torch.equal(ik, ip)
+        assert torch.equal(gk, gp)
+    # gk, ik: the unmasked launch
+    idx, _ = ball_query(centers, packed[..., :3].contiguous(), radius, k)
+    d2 = ((centers[:, :, None] - packed[:, None, :, :3]) ** 2).sum(-1)
+    near = ((d2 - radius ** 2).abs() < 1e-5).any(-1)           # [B,M]
+    same = (idx == ik).all(-1)
+    assert bool((same | near).all())
+    comp = group_points(packed, idx)
+    comp[..., :3] -= centers[:, :, None]
+    assert torch.equal(gk[same], comp[same])
+
+
+def test_cls_ssg_forward_kernels_vs_plain(gen, cuda, monkeypatch):
+    """One cls-ssg forward (B = 4, 2,048 points): 2 FPS and 2 ball-group
+    launches; logits with the kernels swapped for their plain versions
+    agree within 1e-5."""
+    from pctpu_torch.nn import train as T
+    from pctpu_torch.nn.config import TrainConfig
+    model = T.build_model(TrainConfig(model="cls-ssg"), device=cuda)
+    xyz = _surface_clouds(gen, 4, 2048)
+    pc = _t(np.concatenate([xyz, xyz], axis=-1), cuda)
+    f0 = pallas_fps.fps_pallas_batched.launches
+    g0 = pallas_ballgroup.ball_group.launches
+    with torch.no_grad():
+        logits = model(pc)
+    torch.cuda.synchronize()
+    assert pallas_fps.fps_pallas_batched.launches == f0 + 2
+    assert pallas_ballgroup.ball_group.launches == g0 + 2
+    monkeypatch.setattr(pallas_fps, "_launch_fps", pallas_fps.fps_plain)
+    monkeypatch.setattr(pallas_ballgroup, "_launch_ball_group",
+                        pallas_ballgroup.ball_group_plain)
+    with torch.no_grad():
+        plain = model(pc)
+    assert logits.shape == (4, 40) and bool(torch.isfinite(logits).all())
+    torch.testing.assert_close(logits, plain, rtol=0, atol=1e-5)
