@@ -23,12 +23,27 @@ hand-written kernel against its plain PyTorch version:
      kernel 11 `fps_pallas_batched` x2 and kernel 12 `ball_group` x4;
   P8 `cls-ssg` serving, the same data: kernel 11 x2, kernel 12 x2;
   P9 `entry()`, the flagship `cls-msg` forward at B 4 x 1,024 points,
-     then kernel 10 `fps_pallas` on each of its 4 clouds.
+     then kernel 10 `fps_pallas` on each of its 4 clouds;
+  P10 `cls-msg` training at MODELNET40_CLS_MSG (B 32 x 4,096 x 6, 40
+     classes; Adam, the lr and BN-momentum schedules, dropout 0.5, the
+     default augmentation on the card): `make_train_step`, 1 warm-up and
+     5 timed steps; per step kernel 11 x2, kernel 12 x4 and kernel 14
+     `scatter_add_rows` x1 (kernel 12's backward at SA2's fused scale);
+  P11 `cls-ssg` training, the same at MODELNET40_CLS_SSG: kernel 11 x2,
+     kernel 12 x2, kernel 14 x1 per step;
+  P12 `fit` on the toy disk/column task (cls-ssg, 2 classes, 128 points,
+     B 8, 3 epochs, no augmentation): val acc > 0.9, a checkpoint, and a
+     resumed run that carries on from it;
+  and `group_points_pallas` forward and backward (kernels 13
+  `gather_rows` and 14) on the unfused SA2 `group_points` inputs P10
+  recorded.
 
 P1-P6 take their clouds from one scan: a synthetic 124,668-point ray-cast
 LiDAR scan made from --seed, or the velodyne file given by --scan. P7 and
 P8 take synthetic ModelNet-style clouds made from --seed: points and
-normals sampled on the surface of a random box, cylinder or sphere.
+normals sampled on the surface of a random box, cylinder or sphere; P10
+and P11 train on the first 32 of them, P12 on the toy task of
+`tests/test_fit.py`.
 
 Phases:
   1. environment: versions, the card's name and power limit, precision
@@ -37,8 +52,11 @@ Phases:
      read just after: each must launch exactly its kernels; its result
      must pass its gate (RTE < 2 m and RRE < 5 deg, workload 4 also
      RTE < 0.05 m; the classifiers: finite logits of the right shape,
-     cls-ssg's within 1e-4 of the CPU's on 2 clouds); its speed (CUDA
-     events);
+     cls-ssg's within 1e-4 of the CPU's on 2 clouds; training: a finite
+     loss at every step, every parameter moved, one BN's running
+     statistics moved by the schedule's momentum, loss and gradients
+     against the plain versions and against the CPU; fit: val acc > 0.9
+     and a resume); its speed (CUDA events);
   3. on the inputs each path gave its kernels (recorded in a run before
      the counted one, or in the counted run itself), each kernel against
      its plain version with the stated tolerance, timed beside its bound;
@@ -57,7 +75,9 @@ Full results (profile included) are also written to build/chip_smoke.json.
 import argparse
 import contextlib
 import copy
+import dataclasses
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -80,9 +100,11 @@ BANDED = dict(iters=30, dist_thresh=5.0, block=2048, window_blocks=2,
               query_tile=512)
 KERNELS = ("nn1", "spfh", "wsum", "icp_mega_batch", "icp_mega",
            "nearest_banded", "icp_moments_banded", "icp_moments_banded_v2",
-           "fps_pallas", "fps_pallas_batched", "ball_group")
+           "fps_pallas", "fps_pallas_batched", "ball_group", "gather_rows",
+           "scatter_add_rows")
 CLS_REQUESTS, CLS_BATCH, CLS_POINTS = 4, 32, 4096   # MODELNET40_CLS_*
 ENTRY_FPS_M = 512                   # SA1 of the entry forward
+TRAIN_STEPS = 5                     # timed train steps, after 1 warm-up
 
 
 # ---------------------------------------------------------------------------
@@ -218,6 +240,25 @@ def modelnet_like(rng, count, n_points):
         clouds.append(np.concatenate([pc_normalize_np(p @ R.T), nrm @ R.T],
                                      axis=1))
     return np.stack(clouds).astype(np.float32), labels
+
+
+def toy_dataset(n, num_points=128, seed=0):
+    """The toy task of `tests/test_fit.py:9-31`: items (cloud [N,6],
+    label), flat disks (label 0) and tall columns (label 1) in turn."""
+    rng = np.random.default_rng(seed)
+    items = []
+    for i in range(n):
+        label = i % 2
+        pts = np.zeros((num_points, 6), np.float32)
+        if label == 0:
+            pts[:, :2] = rng.uniform(-1, 1, (num_points, 2))
+            pts[:, 2] = rng.normal(scale=0.02, size=num_points)
+        else:
+            pts[:, 2] = rng.uniform(-1, 1, num_points)
+            pts[:, :2] = rng.normal(scale=0.05, size=(num_points, 2))
+        pts[:, 3:] = rng.normal(scale=0.1, size=(num_points, 3))
+        items.append((pts, label))
+    return items
 
 
 # ---------------------------------------------------------------------------
@@ -590,6 +631,38 @@ def time_launches(launch, plain, calls, work):
                 library_ms=None)
 
 
+def grad_err(got, ref):
+    """max over parameters of max |got - ref| / max(|ref|, 1e-3 |all of
+    ref|): each gradient against its own norm, floored at 1e-3 of the
+    whole gradient's norm, since a gradient that is zero in exact
+    arithmetic (the bias of the BN ahead of group-all's max-pool: BN's
+    batch mean removes any shift) is rounding noise on both sides."""
+    ref = [r.detach().double().cpu() for r in ref]
+    total = float(sum((r ** 2).sum() for r in ref)) ** 0.5
+    worst = 0.0
+    for g, r in zip(got, ref):
+        scale = max(float(r.norm()), 1e-3 * total)
+        worst = max(worst, float((g.detach().double().cpu() - r).abs().max())
+                    / scale)
+    return worst
+
+
+def gather_work(args):
+    """(ops, bytes) of one kernel-13 launch: no arithmetic; the table read
+    once, the indices read, the gathered rows written."""
+    table, idx = args
+    b, m = idx.shape
+    return 0.0, nbytes(table, idx) + b * m * table.shape[2] * 4
+
+
+def scatter_work(args):
+    """(ops, bytes) of one kernel-14 launch: one add per gradient float;
+    the gradient rows and indices read once, the [B, n, C] sums written."""
+    g, idx, n = args
+    b, m, c = g.shape
+    return float(b * m * c), nbytes(g, idx) + b * n * c * 4
+
+
 def profile(name, fn, torch, top=12):
     """Device time by kernel over one call of a path (torch.profiler), and
     the device's busy share of the call's wall time. Returns a dict, or
@@ -653,12 +726,15 @@ def main(argv=None):
         from pctpu_torch import entry as pentry
         from pctpu_torch.features import pallas_fpfh
         from pctpu_torch.models import pointnet2
+        from pctpu_torch.nn import augment
+        from pctpu_torch.nn import checkpoint as ckpt
         from pctpu_torch.nn import config as nncfg
         from pctpu_torch.nn import fit
         from pctpu_torch.nn import train as T
         from pctpu_torch.ops import (ball_query, gather, pallas_ballgroup,
                                      pallas_banded, pallas_fps,
-                                     pallas_icp_mega, pallas_nn)
+                                     pallas_gather, pallas_icp_mega,
+                                     pallas_nn)
         from pctpu_torch.parallel import pair_sweep
         from pctpu_torch.register import icp, pipeline
         from pctpu_torch.register.ransac import generator_sampler
@@ -677,7 +753,9 @@ def main(argv=None):
                "icp_moments_banded_v2": banded.icp_moments_banded_v2,
                "fps_pallas": pallas_fps.fps_pallas,
                "fps_pallas_batched": pallas_fps.fps_pallas_batched,
-               "ball_group": pallas_ballgroup.ball_group}
+               "ball_group": pallas_ballgroup.ball_group,
+               "gather_rows": pallas_gather.gather_rows_pallas,
+               "scatter_add_rows": pallas_gather.scatter_add_rows_pallas}
     paths = Paths(counted, torch)
     report, rows, metrics = {}, {}, {}
 
@@ -1065,6 +1143,252 @@ def main(argv=None):
                              torch))
     print("kernel vs plain: all within tolerance")
 
+    # ---- P10, P11 classification training: kernels 11, 12, 14 ------------
+    pc_tr, lab_tr = on_dev(clouds[:CLS_BATCH], labels[:CLS_BATCH])
+
+    def train_path(name, preset, n_bg):
+        """1 warm-up and TRAIN_STEPS timed steps of the preset's recipe
+        (augmentation on the card, then `make_train_step`), with the
+        gates of P10. Returns the warm-up step's recorded kernel-14
+        launches and unfused `group_points` inputs."""
+        model, state = T.create_train_state(
+            preset, torch.Generator().manual_seed(args.seed), pc_tr,
+            device=dev)
+        step = T.make_train_step(model, preset, device=dev)
+
+        def one_step():
+            x = augment.augment_batch(
+                fit.step_generator(args.seed, state.step, 0, dev), pc_tr)
+            return step(state, x, lab_tr, fit.step_generator(
+                args.seed, state.step, 1, dev))
+
+        # one step's loss and gradients from the initial state, with
+        # kernels 11, 12 and 14 and with their plain versions: the forward
+        # is the same arithmetic (the loss within 1e-5); the gradients
+        # within 1e-4 of their norms, as the unfused scales' torch.gather
+        # backward adds with atomics in a varying order
+        snap = copy.deepcopy(model.state_dict())
+        x = augment.augment_batch(fit.step_generator(args.seed, 99, 0, dev),
+                                  pc_tr)
+        keep = torch.rand((CLS_BATCH, 256), generator=torch.Generator(
+            device=dev).manual_seed(args.seed), device=dev) < 0.5
+        bnm = T.bn_momentum_schedule(preset, 0)
+        lk, _, gk = T.loss_and_grads(model, x, lab_tr, bnm, dropout_mask=keep)
+        model.load_state_dict(snap)
+        with swapped(pallas_fps, "_launch_fps", pallas_fps.fps_plain), \
+                swapped(pallas_ballgroup, "_launch_ball_group",
+                        pallas_ballgroup.ball_group_plain), \
+                swapped(pallas_gather, "_launch_scatter_add_rows",
+                        pallas_gather.scatter_add_rows_plain):
+            lp, _, gp = T.loss_and_grads(model, x, lab_tr, bnm,
+                                         dropout_mask=keep)
+        model.load_state_dict(snap)
+        dloss, dgrad = abs(float(lk) - float(lp)), grad_err(gk, gp)
+        need(dloss <= 1e-5 and dgrad <= 1e-4, name, "vs plain", dloss, dgrad)
+
+        # 2 clouds on the card and on the CPU, every scale through kernel
+        # 12 / its plain version (the same neighbours on both sides): the
+        # loss within 1e-4 relative and each gradient within 1e-2 of its
+        # norm. cuBLAS and the CPU's BLAS sum in other orders, and
+        # train-mode BN over 2 clouds amplifies rounding (the port's own
+        # float32 gradients are 1e-3 of a norm from float64 there).
+        cpu_model = copy.deepcopy(model).cpu()
+        with swapped(pointnet2, "fused_ok", lambda *a: True):
+            lk2, _, gk2 = T.loss_and_grads(model, x[:2], lab_tr[:2], bnm,
+                                           dropout_mask=keep[:2])
+            lc2, _, gc2 = T.loss_and_grads(cpu_model, x[:2].cpu(),
+                                           lab_tr[:2].cpu(), bnm,
+                                           dropout_mask=keep[:2].cpu())
+        model.load_state_dict(snap)
+        dcpu = abs(float(lk2) - float(lc2)) / abs(float(lc2))
+        gcpu = grad_err(gk2, gc2)
+        need(dcpu <= 1e-4 and gcpu <= 1e-2, name, "vs the CPU", dcpu, gcpu)
+
+        before = [p.detach().clone() for p in model.parameters()]
+        bn, seen = model.sa[0].mlps[0].bn[0], {}
+
+        def bn_hook(mod, inputs):        # the old and the batch statistics
+            x = inputs[0].detach().double()
+            dims = tuple(range(x.dim() - 1))
+            seen.update(mean=mod.mean.double(), var=mod.var.double(),
+                        bmean=x.mean(dims), bvar=x.var(dims, unbiased=False))
+        hook = bn.register_forward_pre_hook(bn_hook)
+        with Recorder(pallas_gather, "_launch_scatter_add_rows") as rs, \
+                Recorder(pointnet2, "group_points") as rgp:
+            out0 = one_step()                                # step 0
+            torch.cuda.synchronize()
+        hook.remove()
+        m = T.bn_momentum_schedule(preset, 0)
+        need(m == 0.5, name, "BN momentum at step 0", m)
+        bn_err = 0.0
+        for k in ("mean", "var"):       # the f64 batch statistics: rtol 1e-5
+            want = (1.0 - m) * seen[k] + m * seen["b" + k]
+            err = float((getattr(bn, k).double() - want).abs().max()
+                        / want.abs().max().clamp_min(1.0))
+            need(err <= 1e-5, name, "BN running", k, err)
+            bn_err = max(bn_err, err)
+
+        ev2 = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+
+        def timed():
+            ev2[0].record()
+            outs = [one_step() for _ in range(TRAIN_STEPS)]
+            ev2[1].record()
+            return outs
+        torch.cuda.reset_peak_memory_stats()
+        outs = paths.run(name, timed, {
+            "fps_pallas_batched": 2 * TRAIN_STEPS,
+            "ball_group": n_bg * TRAIN_STEPS,
+            "scatter_add_rows": TRAIN_STEPS})
+        step_ms = ev2[0].elapsed_time(ev2[1]) / TRAIN_STEPS
+        peak = torch.cuda.max_memory_allocated()
+        losses = [float(o["loss"]) for o in [out0] + outs]
+        need(all(np.isfinite(losses)), name, "loss", losses)
+        still = sum(torch.equal(a, p) for a, p in zip(before,
+                                                      model.parameters()))
+        need(still == 0, name, "parameters that did not move", still)
+        aug_ms = cuda_ms(lambda: augment.augment_batch(
+            fit.step_generator(args.seed, 0, 0, dev), pc_tr), reps=5)
+
+        metrics[name] = dict(
+            batch=CLS_BATCH, points=CLS_POINTS, steps=TRAIN_STEPS,
+            step_ms=step_ms, clouds_per_s=CLS_BATCH / (step_ms / 1e3),
+            augment_ms=aug_ms, peak_mem_bytes=peak, losses=losses,
+            bn_momentum_err=bn_err, loss_err_vs_plain=dloss,
+            grad_err_vs_plain=dgrad, loss_err_vs_cpu=dcpu,
+            grad_err_vs_cpu=gcpu)
+        print(f"P{10 if name == 'train_cls_msg' else 11} {name} "
+              f"{CLS_BATCH} x {CLS_POINTS} pts: {step_ms:.2f} ms per step "
+              f"= {metrics[name]['clouds_per_s']:.1f} clouds/s trained "
+              f"(augmentation {aug_ms:.2f} ms); peak {peak / 2**30:.2f} GiB;"
+              f" losses {', '.join(f'{v:.4f}' for v in losses)}; BN "
+              f"momentum {m} (err {bn_err:.1e}); vs plain: loss {dloss:.1e}"
+              f", grads {dgrad:.1e}; vs CPU: loss {dcpu:.1e}, grads "
+              f"{gcpu:.1e}")
+        report["profile_" + name] = profile(name + " step", one_step, torch)
+        return rs.calls, [(p.detach(), i) for p, i in rgp.calls]
+
+    r_sc, r_gp = {}, {}
+    for name, preset, n_bg in (("train_cls_msg", nncfg.MODELNET40_CLS_MSG, 4),
+                               ("train_cls_ssg", nncfg.MODELNET40_CLS_SSG, 2)):
+        r_sc[name], r_gp[name] = train_path(name, preset, n_bg)
+        torch.cuda.empty_cache()
+
+    # ---- P12 fit on the toy task, checkpoint and resume --------------------
+    toy = nncfg.TrainConfig(model="cls-ssg", num_classes=2, num_points=128,
+                            batch_size=8, epochs=3, lr=1e-3, decay_step=1e9,
+                            seed=args.seed)
+    toy_train, toy_val = toy_dataset(32, seed=0), toy_dataset(16, seed=1)
+    workdir = ROOT / "build" / "chip_smoke_fit"
+    shutil.rmtree(workdir, ignore_errors=True)
+    n_steps, n_evals = toy.epochs * (32 // 8), toy.epochs * (16 // 8)
+    t0 = time.perf_counter()
+    out12 = paths.run("fit", lambda: fit.fit(
+        toy, toy_train, toy_val, workdir=str(workdir), augment_pipeline=(),
+        device=dev), {"fps_pallas_batched": 2 * (n_steps + n_evals),
+                      "ball_group": 2 * (n_steps + n_evals),
+                      "scatter_add_rows": n_steps})
+    fit_s = time.perf_counter() - t0
+    need(out12["steps"] == n_steps and out12["best_val_acc"] > 0.9, "fit",
+         out12["steps"], out12["best_val_acc"])
+    latest = ckpt.latest_checkpoint(str(workdir))
+    need(latest is not None and latest[1] == out12["best_epoch"] + 1,
+         "fit checkpoint", latest)
+    more = dataclasses.replace(toy, epochs=toy.epochs + 1)
+    out12b = fit.fit(more, toy_train, toy_val, workdir=str(workdir),
+                     resume=True, augment_pipeline=(), device=dev)
+    per_epoch = 32 // 8
+    need(out12b["steps"] == per_epoch * (more.epochs - latest[1])
+         and out12b["state"].step == per_epoch * more.epochs, "fit resume",
+         out12b["steps"], out12b["state"].step)
+    metrics["fit"] = dict(best_val_acc=out12["best_val_acc"],
+                          best_epoch=out12["best_epoch"], seconds=fit_s,
+                          checkpoint=latest[1],
+                          resumed_steps=out12b["steps"],
+                          resumed_best_val_acc=out12b["best_val_acc"])
+    print(f"P12 fit (toy, cls-ssg, {toy.epochs} epochs): best val acc "
+          f"{out12['best_val_acc']:.4f} @ epoch {out12['best_epoch']} in "
+          f"{fit_s:.1f} s; checkpoint {latest[1]}; resumed for "
+          f"{out12b['steps']} steps to step {out12b['state'].step}")
+
+    # ---- kernels 13, 14: group_points_pallas on P10's unfused SA2 inputs --
+    feats = [(p_, i_) for p_, i_ in r_gp["train_cls_msg"]
+             if p_.shape[-1] == 320]
+    need([tuple(i_.shape) for _, i_ in feats] == [
+        (CLS_BATCH, 128, 64), (CLS_BATCH, 128, 128)], "SA2 group_points",
+        [tuple(i_.shape) for _, i_ in feats])
+    g_ct = torch.Generator(device=dev).manual_seed(args.seed)
+    cts = [torch.randn(tuple(i_.shape) + (320,), generator=g_ct, device=dev)
+           for _, i_ in feats]
+
+    def gp_run():
+        res = []
+        for (p_, i_), ct in zip(feats, cts):
+            leaf = p_.clone().requires_grad_()
+            out = pallas_gather.group_points_pallas(leaf, i_)
+            out.backward(ct)
+            res.append((out.detach(), leaf.grad))
+        return res
+    with Recorder(pallas_gather, "_launch_gather_rows") as r13, \
+            Recorder(pallas_gather, "_launch_scatter_add_rows") as r14:
+        gp_res = paths.run("group_points_pallas", gp_run,
+                           {"gather_rows": 2, "scatter_add_rows": 2})
+    gp_err = 0.0
+    for (p_, i_), ct, (out, grad) in zip(feats, cts, gp_res):
+        # kernel 13 == torch.gather exactly; kernel 14 == its plain version
+        # bit for bit and torch.gather's (atomic) backward within 1e-5 of
+        # the largest row sum
+        need(torch.equal(out, gather.group_points(p_, i_)), "gather_rows")
+        b_, m_, k_ = i_.shape
+        plain = pallas_gather.scatter_add_rows_plain(
+            ct.reshape(b_, m_ * k_, 320), i_.reshape(b_, m_ * k_),
+            p_.shape[1])
+        need(torch.equal(grad, plain), "scatter_add_rows vs plain")
+        q = p_.clone().requires_grad_()
+        gather.group_points(q, i_).backward(ct)
+        err = float((grad - q.grad).abs().max() / q.grad.abs().max())
+        need(err <= 1e-5, "scatter_add_rows vs torch.gather's backward", err)
+        gp_err = max(gp_err, err)
+    # kernel 12's backward launches of P10 and P11 against the plain version
+    for args14 in r_sc["train_cls_msg"] + r_sc["train_cls_ssg"]:
+        need(torch.equal(pallas_gather._launch_scatter_add_rows(*args14),
+                         pallas_gather.scatter_add_rows_plain(*args14)),
+             "ball_group backward vs plain", tuple(args14[0].shape))
+    print(f"kernels 13, 14: group_points_pallas on {len(feats)} SA2 inputs "
+          f"equal to torch.gather, its backward to the plain version (bit "
+          f"for bit; vs torch.gather's backward {gp_err:.1e}); "
+          f"{len(r_sc['train_cls_msg']) + len(r_sc['train_cls_ssg'])} "
+          "recorded ball_group backward launches equal to the plain version")
+
+    lib13 = [(t_, i_.long()[..., None].expand(-1, -1, t_.shape[2]))
+             for t_, i_ in r13.calls]
+    rows["gather_rows"] = dict(max_abs_err=0.0, **time_launches(
+        pallas_gather._launch_gather_rows, pallas_gather.gather_rows_plain,
+        r13.calls, [gather_work(a) for a in r13.calls]))
+    rows["gather_rows"]["library_ms"] = cuda_ms(
+        lambda: [torch.gather(t_, 1, e_) for t_, e_ in lib13], reps=5)
+    main14 = r_sc["train_cls_msg"]          # one P10 step's launch
+    flat14 = [(g_.reshape(-1, g_.shape[2]), (
+        i_.long() + n_ * torch.arange(g_.shape[0], device=dev)[:, None]
+    ).reshape(-1), g_.shape[0] * n_) for g_, i_, n_ in main14]
+    rows["scatter_add_rows"] = dict(max_abs_err=0.0, **time_launches(
+        pallas_gather._launch_scatter_add_rows,
+        pallas_gather.scatter_add_rows_plain, main14,
+        [scatter_work(a) for a in main14]))
+    rows["scatter_add_rows"]["library_ms"] = cuda_ms(lambda: [
+        torch.zeros((rn, g_.shape[1]), device=dev).index_add_(0, fi, g_)
+        for g_, fi, rn in flat14], reps=5)
+    rows["scatter_add_rows"]["per_launch_ms"] = {
+        "train_cls_ssg": [cuda_ms(lambda a=a: pallas_gather.
+                                  _launch_scatter_add_rows(*a), reps=5)
+                          for a in r_sc["train_cls_ssg"]],
+        "group_points_pallas": [cuda_ms(lambda a=a: pallas_gather.
+                                        _launch_scatter_add_rows(*a), reps=5)
+                                for a in r14.calls]}
+    rows["gather_rows"]["per_launch_ms"] = [
+        cuda_ms(lambda a=a: pallas_gather._launch_gather_rows(*a), reps=5)
+        for a in r13.calls]
+
     # ---- kernels line, card, result --------------------------------------
     meta = {
         "nn1": ("pctpu_torch/csrc/nn1.cu",
@@ -1093,6 +1417,11 @@ def main(argv=None):
                                "_fps_kernel_batched"),
         "ball_group": ("pctpu_torch/csrc/ballgroup.cu",
                        "pctpu/ops/pallas_ballgroup.py:34 _ballgroup_kernel"),
+        "gather_rows": ("pctpu_torch/csrc/gather.cu",
+                        "pctpu/ops/pallas_gather.py:29 _gather_kernel"),
+        "scatter_add_rows": ("pctpu_torch/csrc/gather.cu",
+                             "pctpu/ops/pallas_gather.py:84 "
+                             "_scatter_add_kernel"),
     }
     kern_rows = []
     for name in KERNELS:
@@ -1113,8 +1442,10 @@ def main(argv=None):
                        "(K1-K4: register_pairs; icp_mega: workload 1; "
                        "K6-K8: one 30-iteration call; fps_pallas_batched "
                        "and ball_group: one cls-msg forward at B 32; "
-                       "fps_pallas: its 4 launches in P9); launches: "
-                       "summed over the paths")
+                       "fps_pallas: its 4 launches in P9; gather_rows: "
+                       "its 2 launches in the group_points_pallas phase; "
+                       "scatter_add_rows: one P10 step's launch, kernel "
+                       "12's backward); launches: summed over the paths")
     print(f"total {report['seconds']:.1f} s")
     (ROOT / "build").mkdir(exist_ok=True)
     (ROOT / "build" / "chip_smoke.json").write_text(

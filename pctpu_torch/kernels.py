@@ -25,7 +25,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build" / "pctpu_torch"
 SOURCES = ("nn1.cu", "fpfh.cu", "icp_mega.cu", "banded.cu", "fps.cu",
-           "ballgroup.cu")
+           "ballgroup.cu", "gather.cu")
 # --fmad=false: no contraction of a*b+c into FMA, so each kernel rounds
 # exactly where its plain PyTorch version does (ties and histogram bins
 # stay put)

@@ -3,10 +3,17 @@ channels-last ([B, N, C]) at every public boundary, as the reference.
 
 Ported: `RuntimeBN`, `SharedMLP` (unfolded Dense + BN + ReLU), the
 `SetAbstraction` module with ball grouping and group-all, and the
-`cls-ssg` / `cls-msg` classifiers. The sampling and grouping ops are
-`ops/fps.py` (kernel 11 on CUDA) and, per scale, the fused ball-group
-kernel 12 where the reference's rule (`fused_ok`) takes it, else
-`ball_query` + `group_points`.
+`cls-ssg` / `cls-msg` classifiers, in eval and train mode. The sampling
+and grouping ops are `ops/fps.py` (kernel 11 on CUDA) and, per scale, the
+fused ball-group kernel 12 (backward: kernel 14) where the reference's
+rule (`fused_ok`) takes it, else `ball_query` + `group_points`, whose
+gradient flows through `torch.gather` as the reference's does through
+XLA's gather.
+
+Train mode (`model.train()`): BN normalises with the batch statistics
+and moves its running ones by the `bn_momentum` the caller passes;
+dropout draws its keep-mask from the explicit `generator` given to
+`forward`, or takes the `dropout_mask` given.
 
 Dense layers keep flax's layout in the converter only: a torch
 `nn.Linear` holds the transposed kernel. Initialisation mirrors flax's
@@ -27,6 +34,7 @@ from pctpu_torch.ops.gather import gather_points, group_points
 
 # flax's truncated-normal correction: the std of a unit normal cut at +-2
 TRUNC_STD = 0.87962566103423978
+DROPOUT_RATE = 0.5      # the classifiers' head (`pointnet2.py:442, 478`)
 
 
 def fused_ok(nsample: int, channels: int, on_device: bool) -> bool:
@@ -53,6 +61,24 @@ def _dense(cin: int, cout: int, bias: bool,
         if bias:
             lin.bias.zero_()
     return lin
+
+
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator] = None,
+            keep_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """flax `nn.Dropout(rate)` in train mode: keep an element where a
+    uniform draw from `generator` is below 1 - rate, and scale it by
+    1 / (1 - rate); zero elsewhere. `keep_mask` (bool, x's shape) stands
+    in for the draw."""
+    keep = 1.0 - rate
+    if keep_mask is None:
+        if generator is None:
+            raise ValueError("dropout draws from an explicit generator: "
+                             "pass generator= or dropout_mask=")
+        keep_mask = torch.rand(x.shape, generator=generator,
+                               device=x.device) < keep
+    return torch.where(keep_mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                        device=x.device))
 
 
 class RuntimeBN(nn.Module):
@@ -188,17 +214,22 @@ class _PointNet2Cls(nn.Module):
                                     _dense(512, 256, False, gen),
                                     _dense(256, num_classes, True, gen)])
         self.bn = nn.ModuleList([RuntimeBN(512), RuntimeBN(256)])
-        self.dropout = nn.Dropout(0.5)
 
-    def forward(self, pc: torch.Tensor, bn_momentum: float = 0.1):
-        """pc [B,N,in_channels] -> logits [B,num_classes]."""
+    def forward(self, pc: torch.Tensor, bn_momentum: float = 0.1,
+                generator: Optional[torch.Generator] = None,
+                dropout_mask: Optional[torch.Tensor] = None):
+        """pc [B,N,in_channels] -> logits [B,num_classes]. In train mode
+        the head's dropout takes `dropout_mask` ([B,256] bool) or draws
+        one from `generator` (on pc's device)."""
         xyz, features = split_pointcloud(pc)
         for sa in self.sa:
             xyz, features = sa(xyz, features, bn_momentum)
         x = features[:, 0, :]
         for dense, bn in zip(self.dense, self.bn):
             x = torch.relu(bn(dense(x), bn_momentum))
-        return self.dense[2](self.dropout(x))
+        if self.training:
+            x = dropout(x, DROPOUT_RATE, generator, dropout_mask)
+        return self.dense[2](x)
 
 
 class PointNet2ClsSSG(_PointNet2Cls):

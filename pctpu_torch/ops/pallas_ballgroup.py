@@ -17,8 +17,13 @@ of the same cloud) follows `ops/ball_query.py`'s contract: idx 0, row
 `packed[0]` minus the centre. The TPU kernel there returns the sum of all
 rows instead (ROADMAP, queue C).
 
-The backward pass (the reference's segment-sum VJP) is not ported yet: the
-wrappers raise on inputs that require a gradient.
+The backward pass mirrors the reference's VJP (`_bg_bwd`, `_bgb_bwd`),
+the selection held constant: d_packed is the deterministic scatter-add of
+the cotangent over the emitted idx, kernel 14's entry
+(`ops/pallas_gather.py:scatter_add_rows_pallas`, or its plain version on
+CPU tensors), and d_centers = -(the cotangent's xyz channels summed over
+the nsample slots) when `sub_xyz`, else zeros. Each is computed only when
+its input needs a gradient.
 """
 from __future__ import annotations
 
@@ -28,6 +33,7 @@ import torch
 
 from pctpu_torch import kernels
 from pctpu_torch.device import f32_square
+from pctpu_torch.ops import pallas_gather
 from pctpu_torch.ops.gather import group_points
 
 BIG = 1e30
@@ -100,33 +106,53 @@ def _launch_ball_group(centers: torch.Tensor, packed: torch.Tensor,
     return out, idx
 
 
+class _BallGroup(torch.autograd.Function):
+    """Kernel 12 (or its plain version) forward; the reference's VJP."""
+
+    @staticmethod
+    def forward(ctx, centers, packed, radius, nsample, points_mask, sub_xyz):
+        args = (centers, packed, radius, nsample, points_mask, sub_xyz)
+        if packed.device.type == "cpu":
+            grouped, idx = ball_group_plain(*args)
+        else:
+            grouped, idx = _launch_ball_group(*args)
+            ball_group.launches += 1
+        ctx.mark_non_differentiable(idx)
+        ctx.save_for_backward(idx)
+        ctx.n, ctx.sub_xyz = packed.shape[1], sub_xyz
+        return grouped, idx
+
+    @staticmethod
+    def backward(ctx, ct, _):
+        (idx,) = ctx.saved_tensors
+        b, m, k, c = ct.shape
+        d_centers = d_packed = None
+        if ctx.needs_input_grad[1]:
+            d_packed = pallas_gather.scatter_add_rows_pallas(
+                ct.reshape(b, m * k, c), idx.reshape(b, m * k), ctx.n)
+        if ctx.needs_input_grad[0]:
+            d_centers = (-ct[..., :3].sum(dim=2) if ctx.sub_xyz else
+                         ct.new_zeros((b, m, 3)))
+        return d_centers, d_packed, None, None, None, None
+
+
 def ball_group(centers: torch.Tensor, packed: torch.Tensor, radius: float,
                nsample: int, points_mask: Optional[torch.Tensor] = None,
                sub_xyz: bool = True):
     """Kernel 12: centers [B,M,3], packed [B,N,C] (C >= 3, xyz first),
     points_mask [B,N] or None -> (grouped [B,M,nsample,C] f32, idx
-    [B,M,nsample] int32). CPU tensors take the plain version; CUDA tensors
-    launch the kernel or raise."""
-    if torch.is_grad_enabled() and (centers.requires_grad
-                                    or packed.requires_grad):
-        raise NotImplementedError(
-            "ball_group: the backward pass of kernel 12 is not ported yet "
-            "(it comes with the training slice); run the forward under "
-            "torch.no_grad()")
+    [B,M,nsample] int32), differentiable in centers and packed. CPU
+    tensors take the plain version; CUDA tensors launch the kernel or
+    raise."""
     b, m, three = centers.shape
     if (three != 3 or packed.dim() != 3 or packed.shape[0] != b
             or packed.shape[2] < 3 or packed.shape[1] < 1 or nsample < 1):
         raise ValueError(f"ball_group: centers {tuple(centers.shape)}, "
                          f"packed {tuple(packed.shape)}, nsample {nsample}")
-    args = (centers.float().contiguous(), packed.float().contiguous(),
-            radius, nsample,
-            None if points_mask is None else points_mask.contiguous(),
-            sub_xyz)
-    if packed.device.type == "cpu":
-        return ball_group_plain(*args)
-    out = _launch_ball_group(*args)
-    ball_group.launches += 1
-    return out
+    return _BallGroup.apply(
+        centers.float().contiguous(), packed.float().contiguous(), radius,
+        nsample, None if points_mask is None else points_mask.contiguous(),
+        sub_xyz)
 
 
 ball_group.launches = 0
@@ -137,7 +163,8 @@ def ball_group_pallas(centers: torch.Tensor, packed: torch.Tensor,
                       sub_xyz: bool = True) -> torch.Tensor:
     """centers [M,3], packed [N,3+C] (xyz first) -> grouped
     [M,nsample,3+C], equal to group_points(packed, ball_query(...)[0])
-    with the relative-xyz subtraction. (The reference's `tile` and
+    with the relative-xyz subtraction; differentiable w.r.t. packed and
+    centers (the selection held constant). (The reference's `tile` and
     `interpret` arguments are TPU layout and have no counterpart.)"""
     return ball_group(centers[None], packed[None], radius, nsample,
                       sub_xyz=sub_xyz)[0][0]
@@ -146,5 +173,6 @@ def ball_group_pallas(centers: torch.Tensor, packed: torch.Tensor,
 def ball_group_pallas_batched(centers: torch.Tensor, packed: torch.Tensor,
                               radius: float, nsample: int,
                               sub_xyz: bool = True) -> torch.Tensor:
-    """[B,M,3] x [B,N,3+C] -> [B,M,nsample,3+C]."""
+    """[B,M,3] x [B,N,3+C] -> [B,M,nsample,3+C], differentiable as
+    `ball_group_pallas`."""
     return ball_group(centers, packed, radius, nsample, sub_xyz=sub_xyz)[0]

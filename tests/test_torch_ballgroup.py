@@ -5,7 +5,8 @@ JAX package, on the CPU: the port's `ball_query` against JAX
 against JAX `ball_group_pallas{,_batched}(interpret=True)`, atol 1e-6 as
 `tests/test_pallas_nn.py` holds the kernel. Rows are copied exactly on
 both sides; only a point within an ulp of the radius could round to the
-other side. Inputs come from numpy with a seed."""
+other side. The VJP against `jax.grad` of the reference. Inputs come from
+numpy with a seed."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -15,7 +16,7 @@ import torch
 from pctpu.ops.ball_query import ball_query as j_ball_query
 from pctpu.ops.pallas_ballgroup import ball_group_pallas as j_bg
 from pctpu.ops.pallas_ballgroup import ball_group_pallas_batched as j_bgb
-from pctpu_torch.ops import pallas_ballgroup
+from pctpu_torch.ops import pallas_ballgroup, pallas_gather
 from pctpu_torch.ops.ball_query import ball_query
 from pctpu_torch.ops.gather import group_points
 
@@ -119,28 +120,80 @@ def test_ball_group_mask_and_empty_ball(rng):
 
 
 def test_ball_group_refuses_gradients(rng):
-    """No silently wrong gradient: an input that requires grad raises
-    (the backward pass comes with the training slice); CPU tensors count
-    no launch."""
+    """Kernel 12 no longer refuses inputs that require a gradient: the
+    backward runs, counts no launch on CPU tensors, computes only the
+    gradients asked for (d_packed: kernel 14's entry, once), and under
+    no_grad nothing is recorded."""
     packed = _t(_packed(rng, 100, 3))[None]
     centers = packed[:, :10, :3].clone()
     before = pallas_ballgroup.ball_group.launches
     pallas_ballgroup.ball_group_pallas_batched(centers, packed, 0.5, 8)
     assert pallas_ballgroup.ball_group.launches == before
-    with pytest.raises(NotImplementedError, match="training"):
-        pallas_ballgroup.ball_group_pallas_batched(
-            centers, packed.clone().requires_grad_(), 0.5, 8)
-    with pytest.raises(NotImplementedError, match="backward"):
-        pallas_ballgroup.ball_group_pallas(centers[0].requires_grad_(),
-                                           packed[0], 0.5, 8)
+    calls = []
+    real = pallas_gather.scatter_add_rows_pallas
+
+    def counting(*args):
+        calls.append(args[2])
+        return real(*args)
+    p = packed.clone().requires_grad_()
+    out = pallas_ballgroup.ball_group_pallas_batched(centers, p, 0.5, 8)
+    pallas_gather.scatter_add_rows_pallas = counting
+    try:
+        out.sum().backward()
+        c = centers[0].clone().requires_grad_()
+        pallas_ballgroup.ball_group_pallas(c, packed[0], 0.5, 8).sum(
+            ).backward()
+    finally:
+        pallas_gather.scatter_add_rows_pallas = real
+    assert calls == [100]                 # only d_packed needs kernel 14
+    assert p.grad.shape == packed.shape and c.grad.shape == (10, 3)
+    np.testing.assert_array_equal(c.grad.numpy(), -8.0)  # -sum of 8 ones
     with torch.no_grad():
-        pallas_ballgroup.ball_group_pallas(
+        g = pallas_ballgroup.ball_group_pallas(
             centers[0], packed[0].clone().requires_grad_(), 0.5, 8)
+    assert g.grad_fn is None
+
+
+@pytest.mark.parametrize("sub_xyz", [True, False])
+def test_ball_group_vjp_matches_jax(rng, sub_xyz):
+    """d_packed and d_centers of `ball_group_pallas_batched` (the plain
+    forward, kernel 14's plain version for d_packed) == `jax.grad` of the
+    reference's `ball_group_pallas_batched(interpret=True)` within 1e-5
+    (XLA's segment_sum on the CPU adds in an unspecified order); and the
+    single-cloud `ball_group_pallas` likewise."""
+    b, n, m, k, r = 2, 256, 32, 16, 0.4
+    packed = np.stack([_packed(rng, n, 4) for _ in range(b)])
+    centers = packed[:, :m, :3].copy()
+    ct = rng.normal(size=(b, m, k, 7)).astype(np.float32)
+
+    def jloss(c, p):
+        return jnp.sum(j_bgb(c, p, r, k, tile=32, sub_xyz=sub_xyz,
+                             interpret=True) * ct)
+    dc, dp = jax.grad(jloss, argnums=(0, 1))(jnp.asarray(centers),
+                                             jnp.asarray(packed))
+    c_ = _t(centers).requires_grad_()
+    p_ = _t(packed).requires_grad_()
+    (pallas_ballgroup.ball_group_pallas_batched(c_, p_, r, k,
+                                                sub_xyz=sub_xyz)
+     * _t(ct)).sum().backward()
+    np.testing.assert_allclose(p_.grad.numpy(), np.asarray(dp), atol=1e-5)
+    np.testing.assert_allclose(c_.grad.numpy(), np.asarray(dc), atol=1e-5)
+
+    def jloss1(c, p):
+        return jnp.sum(j_bg(c, p, r, k, 32, sub_xyz, True) * ct[0])
+    dc1, dp1 = jax.grad(jloss1, argnums=(0, 1))(jnp.asarray(centers[0]),
+                                                jnp.asarray(packed[0]))
+    c1 = _t(centers[0]).requires_grad_()
+    p1 = _t(packed[0]).requires_grad_()
+    (pallas_ballgroup.ball_group_pallas(c1, p1, r, k, sub_xyz=sub_xyz)
+     * _t(ct[0])).sum().backward()
+    np.testing.assert_allclose(p1.grad.numpy(), np.asarray(dp1), atol=1e-5)
+    np.testing.assert_allclose(c1.grad.numpy(), np.asarray(dc1), atol=1e-5)
 
 
 def test_jax_ball_group_reference_is_differentiable(rng):
-    """The reference's VJP exists (the port's comes later): its gradient
-    w.r.t. packed is a segment-sum of the cotangent over the idx."""
+    """The reference's VJP: its gradient w.r.t. packed is a segment-sum
+    of the cotangent over the idx (here the hit counts of each point)."""
     packed = jnp.asarray(_packed(rng, 128, 2))
     centers = packed[:16, :3]
     g = jax.grad(lambda p: jnp.sum(j_bg(centers, p, 0.5, 8, 16, True,

@@ -63,7 +63,9 @@ def test_port_imports_no_jax_or_pctpu():
                    "ops/fps.py", "ops/pallas_fps.py", "ops/ball_query.py",
                    "ops/pallas_ballgroup.py", "models/pointnet2.py",
                    "models/convert.py", "nn/config.py", "nn/train.py",
-                   "nn/data.py", "nn/fit.py", "entry.py"):
+                   "nn/data.py", "nn/fit.py", "entry.py",
+                   "ops/pallas_gather.py", "nn/augment.py",
+                   "nn/checkpoint.py", "nn/train_cli.py"):
         assert f"pctpu_torch/{module}" in names, module
     bad = [(str(f.relative_to(REPO)), mod) for f in files
            for mod in _imports(f) if mod.split(".")[0] in FORBIDDEN]

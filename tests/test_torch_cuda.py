@@ -13,7 +13,7 @@ import torch
 from pctpu_torch.features import pallas_fpfh
 from pctpu_torch.features.fpfh_dense import normals_radius_dense
 from pctpu_torch.ops import (pallas_ballgroup, pallas_banded, pallas_fps,
-                             pallas_icp_mega, pallas_nn)
+                             pallas_gather, pallas_icp_mega, pallas_nn)
 from pctpu_torch.ops.ball_query import ball_query
 from pctpu_torch.ops.gather import group_points
 from pctpu_torch.ops.voxel import voxel_downsample_capped
@@ -273,11 +273,13 @@ def _surface_clouds(gen, b, n):
 
 @pytest.mark.parametrize("b,n,m,masked", [(32, 4096, 512, False),
                                           (3, 1000, 200, True),
-                                          (2, 20000, 64, True)])
+                                          (2, 20000, 64, True),
+                                          (8, 128, 512, False)])
 def test_fps_kernel_matches_plain(gen, cuda, b, n, m, masked):
     """Kernel 11: idx equal to the plain version's, bit for bit (N = 4096
     keeps mind in registers and the cloud in shared memory, N = 1000 has
-    a ragged last warp, N = 20000 uses the global-memory paths)."""
+    a ragged last warp, N = 20000 uses the global-memory paths, and
+    N = 128 < m = 512, the toy task's SA1, repeats its picks)."""
     pts = _t(_surface_clouds(gen, b, n), cuda)
     mask = _t(gen.uniform(size=(b, n)) > 0.2, cuda) if masked else None
     before = pallas_fps.fps_pallas_batched.launches
@@ -351,3 +353,79 @@ def test_cls_ssg_forward_kernels_vs_plain(gen, cuda, monkeypatch):
         plain = model(pc)
     assert logits.shape == (4, 40) and bool(torch.isfinite(logits).all())
     torch.testing.assert_close(logits, plain, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("b,n,m,c", [(32, 512, 8192, 320), (3, 700, 1001, 7),
+                                     (2, 50, 33, 1)])
+def test_gather_rows_kernel_matches_plain(gen, cuda, b, n, m, c):
+    """Kernel 13: an exact copy, equal to torch.gather after clipping
+    (out-of-range indices included)."""
+    table = _t(gen.normal(size=(b, n, c)).astype(np.float32), cuda)
+    idx = _t(gen.integers(-2, n + 2, (b, m)).astype(np.int32), cuda)
+    before = pallas_gather.gather_rows_pallas.launches
+    k = pallas_gather.gather_rows_pallas(table, idx)
+    torch.cuda.synchronize()
+    assert pallas_gather.gather_rows_pallas.launches == before + 1
+    assert torch.equal(k, pallas_gather.gather_rows_plain(table, idx))
+
+
+@pytest.mark.parametrize("b,n,m,c", [(32, 512, 16384, 323),
+                                     (2, 1000, 60000, 5), (4, 64, 300, 40),
+                                     (1, 3, 0, 4)])
+def test_scatter_add_rows_kernel_matches_plain(gen, cuda, b, n, m, c):
+    """Kernel 14 == its plain version bit for bit: the cls-msg SA2 shape
+    (the inverted index in shared memory), one whose N + M ints exceed it
+    (global scratch), a heavy bucket, clipped indices and M = 0."""
+    g = _t(gen.normal(size=(b, m, c)).astype(np.float32), cuda)
+    idx = gen.integers(-2, n + 2, (b, m)).astype(np.int32)
+    idx[:, ::4] = 1
+    idx = _t(idx, cuda)
+    before = pallas_gather.scatter_add_rows_pallas.launches
+    k = pallas_gather.scatter_add_rows_pallas(g, idx, n)
+    torch.cuda.synchronize()
+    assert pallas_gather.scatter_add_rows_pallas.launches == before + 1
+    assert torch.equal(k, pallas_gather.scatter_add_rows_plain(g, idx, n))
+    again = pallas_gather.scatter_add_rows_pallas(g, idx, n)
+    assert torch.equal(k, again)                 # deterministic
+
+
+def test_group_points_pallas_kernels_forward_backward(gen, cuda):
+    """group_points_pallas on the card: forward (kernel 13) equals
+    torch.gather; backward (kernel 14) equals the plain scatter-add bit
+    for bit and torch.gather's atomic backward within 1e-5."""
+    b, n, m, k, c = 4, 512, 128, 64, 320
+    pts = _t(gen.normal(size=(b, n, c)).astype(np.float32), cuda)
+    idx = _t(gen.integers(0, n, (b, m, k)).astype(np.int32), cuda)
+    ct = _t(gen.normal(size=(b, m, k, c)).astype(np.float32), cuda)
+    p = pts.clone().requires_grad_()
+    out = pallas_gather.group_points_pallas(p, idx)
+    assert torch.equal(out, group_points(pts, idx))
+    out.backward(ct)
+    plain = pallas_gather.scatter_add_rows_plain(
+        ct.reshape(b, m * k, c), idx.reshape(b, m * k), n)
+    assert torch.equal(p.grad, plain)
+    q = pts.clone().requires_grad_()
+    group_points(q, idx).backward(ct)
+    torch.testing.assert_close(p.grad, q.grad, rtol=0, atol=1e-5)
+
+
+def test_ball_group_backward_kernel_matches_plain(gen, cuda):
+    """Kernel 12's backward on the card (kernel 14's entry, one launch for
+    d_packed) equals the plain scatter-add of the cotangent over the
+    emitted idx bit for bit; d_centers = -(xyz cotangent summed)."""
+    b, n, m, k, c = 4, 512, 128, 32, 323
+    xyz = _surface_clouds(gen, b, n)
+    packed = _t(np.concatenate(
+        [xyz, gen.normal(size=(b, n, c - 3)).astype(np.float32)], -1), cuda)
+    centers = _t(xyz[:, :m], cuda).requires_grad_()
+    p = packed.clone().requires_grad_()
+    ct = _t(gen.normal(size=(b, m, k, c)).astype(np.float32), cuda)
+    before = pallas_gather.scatter_add_rows_pallas.launches
+    grouped, idx = pallas_ballgroup.ball_group(centers, p, 0.4, k)
+    grouped.backward(ct)
+    torch.cuda.synchronize()
+    assert pallas_gather.scatter_add_rows_pallas.launches == before + 1
+    plain = pallas_gather.scatter_add_rows_plain(
+        ct.reshape(b, m * k, c), idx.reshape(b, m * k), n)
+    assert torch.equal(p.grad, plain)
+    assert torch.equal(centers.grad, -ct[..., :3].sum(dim=2))
