@@ -34,9 +34,25 @@ hand-written kernel against its plain PyTorch version:
   P12 `fit` on the toy disk/column task (cls-ssg, 2 classes, 128 points,
      B 8, 3 epochs, no augmentation): val acc > 0.9, a checkpoint, and a
      resumed run that carries on from it;
-  and `group_points_pallas` forward and backward (kernels 13
+  `group_points_pallas` forward and backward (kernels 13
   `gather_rows` and 14) on the unfused SA2 `group_points` inputs P10
-  recorded.
+  recorded;
+  P13 the SLAM loop, `bench.py` workload 5 (`run_odometry`: 32 frames of a
+     6 m circle through a ground-and-pillars world, point-to-plane scan
+     matching, closures initialised by `register_pairs`, the dense pose
+     graph): K1 per association, K2-K4 in round 0's global closures;
+  P14 a 128-frame figure-eight with a keyframe per frame
+     (`tests/test_odometry.py:88-115`): the block-sparse pose graph on the
+     card, and its float64 solve against the float32 one;
+  P15 the registration-dataset driver (`registration_driver.main`) on P1's
+     16 pairs written as oxford .bin files, batch 8: K1-K4, no kernel 5;
+  and kernel 9 `moments` through `normals_radius_fused` on P13's frames
+  (unbanded) and on P1's voxel clouds (x-banded, then `fpfh_fused` with
+  those normals: K9 -> K2 -> K3).
+
+P13-P14 build their worlds and scans from fixed seeds as `bench.py` and
+the test do (rng 5 and 0); P15 writes its files under
+build/chip_smoke_reg/.
 
 P1-P6 take their clouds from one scan: a synthetic 124,668-point ray-cast
 LiDAR scan made from --seed, or the velodyne file given by --scan. P7 and
@@ -56,10 +72,15 @@ Phases:
      loss at every step, every parameter moved, one BN's running
      statistics moved by the schedule's momentum, loss and gradients
      against the plain versions and against the CPU; fit: val acc > 0.9
-     and a resume); its speed (CUDA events);
+     and a resume; SLAM: bench.py's gates, >= 1 closure and an optimized
+     ATE below the raw one and 0.8 m; the figure-eight: the test's gates;
+     the driver: no failed pair, every pair within the bound); its speed
+     (CUDA events, or the host clock around a synchronised call);
   3. on the inputs each path gave its kernels (recorded in a run before
      the counted one, or in the counted run itself), each kernel against
-     its plain version with the stated tolerance, timed beside its bound;
+     its plain version with the stated tolerance, timed beside its bound
+     (P13-P15 and the kernel-9 phase: K2-K4 on every launch, K1 on the
+     first and last launch of each input shape and a few between);
      and each ICP path run once more with its kernels swapped for their
      plain versions: the poses agree within 1e-4 (the classifiers' logits
      within 1e-5);
@@ -100,11 +121,15 @@ BANDED = dict(iters=30, dist_thresh=5.0, block=2048, window_blocks=2,
               query_tile=512)
 KERNELS = ("nn1", "spfh", "wsum", "icp_mega_batch", "icp_mega",
            "nearest_banded", "icp_moments_banded", "icp_moments_banded_v2",
-           "fps_pallas", "fps_pallas_batched", "ball_group", "gather_rows",
-           "scatter_add_rows")
+           "moments", "fps_pallas", "fps_pallas_batched", "ball_group",
+           "gather_rows", "scatter_add_rows")
 CLS_REQUESTS, CLS_BATCH, CLS_POINTS = 4, 32, 4096   # MODELNET40_CLS_*
 ENTRY_FPS_M = 512                   # SA1 of the entry forward
 TRAIN_STEPS = 5                     # timed train steps, after 1 warm-up
+ODO_FRAMES = 32                     # bench.py ODO_FRAMES
+ODO_CFG = dict(voxel_leaf=0.4, icp_iters=30, icp_dist_thresh=3.0,
+               keyframe_every=4, closure_radius=13.0, closure_min_gap=3,
+               query_chunk=1024, frontend="scan")      # bench.py:336-339
 
 
 # ---------------------------------------------------------------------------
@@ -261,6 +286,66 @@ def toy_dataset(n, num_points=128, seed=0):
     return items
 
 
+def slam_world(rng, n_ground=3000, n_pillar=250):
+    """The world of `bench.py:302-315` (and `tests/test_odometry.py:
+    8-24`): flat ground over 60 x 60 m (2 cm height noise) and 12 pillars,
+    0.4 m cylinders 4 m tall, as one point set."""
+    pts = [np.concatenate([rng.uniform(-30, 30, (n_ground, 2)),
+                           rng.normal(scale=0.02, size=(n_ground, 1))], axis=1)]
+    for _ in range(12):
+        c = rng.uniform(-25, 25, 2)
+        ang = rng.uniform(0, 2 * np.pi, n_pillar)
+        pts.append(np.stack([c[0] + 0.4 * np.cos(ang),
+                             c[1] + 0.4 * np.sin(ang),
+                             rng.uniform(0, 4, n_pillar)], axis=1))
+    return np.concatenate(pts).astype(np.float32)
+
+
+def circle_poses(n_frames, radius):
+    """`bench.py:317-326`: a circular drive, heading along the circle."""
+    gt = []
+    for i in range(n_frames):
+        th = 2 * np.pi * i / n_frames
+        T = np.eye(4, dtype=np.float32)
+        c, s = np.cos(th), np.sin(th)
+        T[:3, :3] = np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]], np.float32)
+        T[:3, 3] = [radius * c, radius * s, 0.0]
+        gt.append(T)
+    return np.stack(gt)
+
+
+def figure_eight_poses(n_frames, radius=6.0):
+    """`tests/test_odometry.py:71-87`: a 1:2 Lissajous figure-eight,
+    heading along the velocity."""
+    poses = []
+    for i in range(n_frames):
+        t = i / n_frames
+        x = radius * np.sin(2 * np.pi * t)
+        y = 0.5 * radius * np.sin(4 * np.pi * t)
+        yaw = np.arctan2(0.5 * radius * 4 * np.pi * np.cos(4 * np.pi * t),
+                         radius * 2 * np.pi * np.cos(2 * np.pi * t))
+        T = np.eye(4, dtype=np.float32)
+        c, s = np.cos(yaw), np.sin(yaw)
+        T[:3, :3] = np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]], np.float32)
+        T[:3, 3] = [x, y, 0.0]
+        poses.append(T)
+    return np.stack(poses)
+
+
+def render_scans(world, gt, rng, max_range, noise=0.01):
+    """Each pose's scan: the world in the sensor frame, cropped to
+    `max_range` in the plane, with `noise` m Gaussian noise
+    (`bench.py:324-329`)."""
+    scans = []
+    for T in gt:
+        inv = np.linalg.inv(T)
+        local = world @ inv[:3, :3].T + inv[:3, 3]
+        keep = np.linalg.norm(local[:, :2], axis=1) < max_range
+        scans.append((local[keep] + rng.normal(
+            scale=noise, size=(int(keep.sum()), 3))).astype(np.float32))
+    return scans
+
+
 # ---------------------------------------------------------------------------
 # timing, bounds, recording
 # ---------------------------------------------------------------------------
@@ -365,10 +450,14 @@ class Paths:
         self.launches = {}
 
     def run(self, name, fn, expect):
+        """`expect` is a dict of launches, or a function of fn's result
+        returning one (for a path whose work depends on its data)."""
         for k in self.counted.values():
             k.launches = 0
         out = fn()
         self.torch.cuda.synchronize()
+        if callable(expect):
+            expect = expect(out)
         got = {k: f.launches for k, f in self.counted.items()}
         want = {k: expect.get(k, 0) for k in self.counted}
         need(got == want, name, got, want)
@@ -424,9 +513,10 @@ def _flip_ok(k, p, name):
     return mx
 
 
-def check_fpfh(mods, spfh_calls, wsum_calls, torch):
-    """K2, K3 vs plain on the main path's inputs (both cloud batches):
-    bin-flip fraction < 2e-3, mean |diff| < 0.02, max |diff| < 15."""
+def check_fpfh(mods, spfh_calls, wsum_calls, torch, timed=True):
+    """K2, K3 vs plain on a path's recorded inputs: bin-flip fraction <
+    2e-3, mean |diff| < 0.02, max |diff| < 15. `timed` adds the kernel's
+    and the plain version's times."""
     f = mods["pallas_fpfh"]
     res = {}
     for name, calls in (("spfh", spfh_calls), ("wsum", wsum_calls)):
@@ -445,10 +535,12 @@ def check_fpfh(mods, spfh_calls, wsum_calls, torch):
             err = max(err, _flip_ok(outk, outp, name))
             q_tile, db_tile = args[-3], args[-2]
             visited += int(args[3].sum()) * q_tile * db_tile
-        res[name] = dict(max_abs_err=err, visited=visited, bytes=byt,
-                         ms=sum(cuda_ms(lambda a=a: kern(*a)) for a in calls),
-                         plain_ms=sum(cuda_ms(lambda a=a: plain(*a), reps=2)
-                                      for a in calls))
+        res[name] = dict(max_abs_err=err, visited=visited, bytes=byt)
+        if timed:
+            res[name].update(
+                ms=sum(cuda_ms(lambda a=a: kern(*a)) for a in calls),
+                plain_ms=sum(cuda_ms(lambda a=a: plain(*a), reps=2)
+                             for a in calls))
     return res
 
 
@@ -498,6 +590,62 @@ def check_mega(m, calls, torch, retile=False):
         errs.append(float((pk - pp).abs().max()))
         need(errs[-1] <= 1e-4, ("icp_mega", k, errs[-1]))
     return errs
+
+
+@contextlib.contextmanager
+def recording_k1_k4(pallas_nn, pallas_fpfh, mega):
+    """Records the inputs of every K1-K4 launch of a run (`Recorder`)."""
+    with Recorder(pallas_nn, "nn1") as r_nn, \
+            Recorder(pallas_fpfh, "spfh") as r_spfh, \
+            Recorder(pallas_fpfh, "wsum") as r_wsum, \
+            Recorder(mega, "_launch_icp_mega") as r_k4:
+        yield dict(nn1=r_nn, spfh=r_spfh, wsum=r_wsum, icp_mega=r_k4)
+
+
+def nn1_sample(calls, spread=4):
+    """The K1 launches a path's check takes: `spread` of them spread over
+    the run, and the first and last of each input shape (a front-end
+    frame, each closure batch, register_pairs' stats)."""
+    pick = set(range(0, len(calls), max(1, len(calls) // spread)))
+    by_shape = {}
+    for i, (q, db, _) in enumerate(calls):
+        by_shape.setdefault((tuple(q.shape), tuple(db.shape)), []).append(i)
+    for idx in by_shape.values():
+        pick.update((idx[0], idx[-1]))
+    return [calls[i] for i in sorted(pick)]
+
+
+def check_path_kernels(mods, rec, torch):
+    """K1-K4 vs plain on one path's recorded launches, at check_nn1's,
+    check_fpfh's and check_mega's tolerances: K1 on `nn1_sample`, K2-K4
+    on every launch. Returns what was checked and the worst errors."""
+    nn_calls = nn1_sample(rec["nn1"].calls)
+    out = {"nn1": dict(
+        checked=len(nn_calls), launches=len(rec["nn1"].calls),
+        batch_sizes=sorted({int(a[0].shape[0]) for a in nn_calls}),
+        max_abs_err=max(check_nn1(mods, a, torch, timed=False)["max_abs_err"]
+                        for a in nn_calls))}
+    if rec["spfh"].calls:
+        fp = check_fpfh(mods, rec["spfh"].calls, rec["wsum"].calls, torch,
+                        timed=False)
+        for k in ("spfh", "wsum"):
+            out[k] = dict(checked=len(rec[k].calls),
+                          max_abs_err=fp[k]["max_abs_err"])
+    if rec["icp_mega"].calls:
+        errs = check_mega(mods["pallas_icp_mega"], rec["icp_mega"].calls,
+                          torch)
+        out["icp_mega_batch"] = dict(checked=len(errs), max_abs_err=max(errs))
+    return out
+
+
+def kernels_line(name, res):
+    return (f"   {name} kernels vs plain on this run's launches: K1 "
+            f"{res['nn1']['checked']} of {res['nn1']['launches']} (batch "
+            f"sizes {res['nn1']['batch_sizes']}) max |err| "
+            f"{res['nn1']['max_abs_err']:.1e}" + "".join(
+                f", {k} {res[k]['checked']} max |err| "
+                f"{res[k]['max_abs_err']:.1e}"
+                for k in ("spfh", "wsum", "icp_mega_batch") if k in res))
 
 
 def time_mega(m, calls):
@@ -663,6 +811,49 @@ def scatter_work(args):
     return float(b * m * c), nbytes(g, idx) + b * n * c * 4
 
 
+@contextlib.contextmanager
+def timed_calls(module, name, bucket, torch):
+    """Bind `name` in `module` to a wrapper that adds each call's seconds
+    (synchronised on both sides) to bucket[name]."""
+    fn = getattr(module, name)
+
+    def wrapper(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        bucket[name] = bucket.get(name, 0.0) + time.perf_counter() - t0
+        return out
+    with swapped(module, name, wrapper):
+        yield
+
+
+def odometry_launches(out, cfg, n_frames):
+    """The launches one `run_odometry` call must make, from its result:
+    K1 once per front-end iteration, and per closure round with
+    candidates once per ICP iteration (all candidates in lockstep) and
+    once for the fitness; round 0's global inits add `register_pairs`
+    (K1 for its stats, K2 and K3 per cloud batch, K4 for the voxel ICP
+    and the exact refine)."""
+    cands = out["closure_candidates"]
+    nn = (n_frames - 1) * cfg.icp_iters + sum(
+        cfg.icp_iters + 1 for c in cands if c)
+    want = {"nn1": nn}
+    if cands[0] and cfg.closure_init == "global":
+        want["nn1"] += 1
+        want.update(spfh=2, wsum=2, icp_mega_batch=2)
+    return want
+
+
+def ulp_check(k, p, torch):
+    """(max |k - p|, entries that differ, whether every entry of k is
+    within one float32 ulp of p)."""
+    inf = torch.tensor(float("inf"), device=p.device)
+    within = bool(((k >= torch.nextafter(p, -inf))
+                   & (k <= torch.nextafter(p, inf))).all())
+    return float((k - p).abs().max()), int((k != p).sum()), within
+
+
 def profile(name, fn, torch, top=12):
     """Device time by kernel over one call of a path (torch.profiler), and
     the device's busy share of the call's wall time. Returns a dict, or
@@ -722,9 +913,9 @@ def main(argv=None):
         from pctpu_torch import device as pdevice
         from pctpu_torch import kernels
         from pctpu_torch.core import io, se3
-        from pctpu_torch.core.cloud import PointCloud
+        from pctpu_torch.core.cloud import PointCloud, round_up
         from pctpu_torch import entry as pentry
-        from pctpu_torch.features import pallas_fpfh
+        from pctpu_torch.features import fpfh_dense, pallas_fpfh
         from pctpu_torch.models import pointnet2
         from pctpu_torch.nn import augment
         from pctpu_torch.nn import checkpoint as ckpt
@@ -734,8 +925,9 @@ def main(argv=None):
         from pctpu_torch.ops import (ball_query, gather, pallas_ballgroup,
                                      pallas_banded, pallas_fps,
                                      pallas_gather, pallas_icp_mega,
-                                     pallas_nn)
-        from pctpu_torch.parallel import pair_sweep
+                                     pallas_nn, voxel)
+        from pctpu_torch.parallel import pair_sweep, posegraph
+        from pctpu_torch.pipelines import odometry, registration_driver
         from pctpu_torch.register import icp, pipeline
         from pctpu_torch.register.ransac import generator_sampler
     except ImportError as e:
@@ -755,7 +947,8 @@ def main(argv=None):
                "fps_pallas_batched": pallas_fps.fps_pallas_batched,
                "ball_group": pallas_ballgroup.ball_group,
                "gather_rows": pallas_gather.gather_rows_pallas,
-               "scatter_add_rows": pallas_gather.scatter_add_rows_pallas}
+               "scatter_add_rows": pallas_gather.scatter_add_rows_pallas,
+               "moments": pallas_fpfh.moments}
     paths = Paths(counted, torch)
     report, rows, metrics = {}, {}, {}
 
@@ -1389,6 +1582,305 @@ def main(argv=None):
         cuda_ms(lambda a=a: pallas_gather._launch_gather_rows(*a), reps=5)
         for a in r13.calls]
 
+    # ---- P13 the SLAM loop: bench.py workload 5 (K1, then K2-K4) ----------
+    rng13 = np.random.default_rng(5)                    # bench.py:301
+    world13 = slam_world(rng13)
+    gt13 = circle_poses(ODO_FRAMES, 6.0)
+    scans13 = render_scans(world13, gt13, rng13, 20.0)
+    cfg13 = odometry.OdometryConfig(**ODO_CFG)
+
+    def p13_run():
+        return odometry.run_odometry(scans13, cfg13)
+    p13_run()                                           # warm-up
+    with recording_k1_k4(pallas_nn, pallas_fpfh, mega) as rec13:
+        t0 = time.perf_counter()
+        out13 = paths.run("slam", p13_run,
+                          lambda o: odometry_launches(o, cfg13, ODO_FRAMES))
+        p13_s = time.perf_counter() - t0
+    ate_raw, ate_opt = (odometry.ate(out13[k], gt13)
+                        for k in ("poses", "poses_optimized"))
+    # bench.py:347-354: the closed loop, not the front end's chain
+    need(len(out13["closures"]) >= 1, "slam: no closure accepted",
+         out13["closures_rejected"])
+    need(ate_opt < ate_raw and ate_opt < 0.8, "slam ATE", ate_raw, ate_opt)
+    split13 = {}
+    with timed_calls(odometry, "odometry_deltas_scan", split13, torch), \
+            timed_calls(pipeline, "register_pairs", split13, torch), \
+            timed_calls(odometry, "_closure_validate_batch", split13, torch), \
+            timed_calls(odometry, "optimize_pose_graph", split13, torch):
+        t0 = time.perf_counter()
+        p13_run()
+        split13["total"] = time.perf_counter() - t0
+    report["profile_slam"] = profile("slam", p13_run, torch)
+    # the front end alone, on run_odometry's own inputs, with K1 and with
+    # its plain version: the same deltas; and the same poses as P13's run
+    cap13 = round_up(max(len(x) for x in scans13), 2048)
+    pc13 = [odometry._prep(x, cap13, cfg13.voxel_leaf, dev) for x in scans13]
+    pts13 = torch.stack([c.points for c in pc13])
+    msk13 = torch.stack([c.mask for c in pc13])
+    nrm13 = fpfh_dense.normals_radius_dense(pts13, msk13,
+                                            radius=2.5 * cfg13.voxel_leaf)
+    fe_kw = dict(iters=cfg13.icp_iters, dist_thresh=cfg13.icp_dist_thresh,
+                 query_chunk=cfg13.query_chunk)
+    deltas13 = odometry.odometry_deltas_scan(pts13, msk13, nrm13, **fe_kw)
+    fe_ms = cuda_ms(lambda: odometry.odometry_deltas_scan(
+        pts13, msk13, nrm13, **fe_kw), reps=3)
+    with swapped(pallas_nn, "nn1", pallas_nn.nearest_plain):
+        deltas13p = odometry.odometry_deltas_scan(pts13, msk13, nrm13, **fe_kw)
+    fe_err = float((deltas13 - deltas13p).abs().max())
+    need(fe_err <= 1e-4, "slam front end vs plain K1", fe_err)
+    chain_err = float(np.abs(odometry.compose_deltas(deltas13).cpu().numpy()
+                             - out13["poses"]).max())
+    need(chain_err <= 1e-6, "slam front end vs run_odometry", chain_err)
+    k13 = check_path_kernels(mods, rec13, torch)
+    need(max(k13["nn1"]["batch_sizes"]) > 1 and "icp_mega_batch" in k13,
+         "slam: no closure batch among the checked launches", k13)
+    metrics["slam"] = dict(
+        frames=ODO_FRAMES, seconds=p13_s, frames_per_s=ODO_FRAMES / p13_s,
+        ate_raw=ate_raw, ate_optimized=ate_opt,
+        closures=len(out13["closures"]),
+        closures_rejected=len(out13["closures_rejected"]),
+        closure_candidates=out13["closure_candidates"],
+        points_per_frame=int(msk13.sum(1).float().mean()), capacity=cap13,
+        frontend_ms=fe_ms, frontend_frames_per_s=ODO_FRAMES / (fe_ms / 1e3),
+        frontend_err_vs_plain=fe_err, split_s=split13,
+        launches=paths.launches["slam"], kernels_vs_plain=k13)
+    print(f"P13 SLAM (bench.py workload 5, {ODO_FRAMES} frames, "
+          f"{metrics['slam']['points_per_frame']} voxels a frame): "
+          f"{p13_s:.3f} s = {ODO_FRAMES / p13_s:.2f} frames/s; ATE raw "
+          f"{ate_raw:.4f} m, optimized {ate_opt:.4f} m; closures "
+          f"{len(out13['closures'])} accepted, "
+          f"{len(out13['closures_rejected'])} rejected (candidates "
+          f"{out13['closure_candidates']}); launches "
+          f"{paths.launches['slam']}; front end {fe_ms:.1f} ms = "
+          f"{ODO_FRAMES / (fe_ms / 1e3):.1f} frames/s, deltas vs plain K1 "
+          f"{fe_err:.1e}; split (s) "
+          + ", ".join(f"{k} {v:.3f}" for k, v in split13.items()))
+    print(kernels_line("P13", k13))
+
+    # ---- P14 the >100-keyframe graph: sparse PCG on the card ----------------
+    rng14 = np.random.default_rng(0)                    # the test's rng
+    world14 = slam_world(rng14, 1500, 125)
+    gt14 = figure_eight_poses(128)
+    scans14 = render_scans(world14, gt14, rng14, 12.0)
+    path_len = float(np.linalg.norm(np.diff(gt14[:, :3, 3], axis=0),
+                                    axis=1).sum())
+    cfg14 = odometry.OdometryConfig(
+        voxel_leaf=0.5, icp_iters=15, icp_dist_thresh=3.0, keyframe_every=1,
+        closure_radius=2.0, closure_min_gap=24, query_chunk=1024,
+        closure_reg_capacity=1024)                  # tests/test_odometry.py
+    split14 = {}
+    t0 = time.perf_counter()
+    with timed_calls(odometry, "odometry_deltas_scan", split14, torch), \
+            timed_calls(pipeline, "register_pairs", split14, torch), \
+            timed_calls(odometry, "_closure_validate_batch", split14, torch), \
+            timed_calls(odometry, "optimize_pose_graph_sparse", split14,
+                        torch), \
+            recording_k1_k4(pallas_nn, pallas_fpfh, mega) as rec14:
+        out14 = paths.run("slam_figure_eight",
+                          lambda: odometry.run_odometry(scans14, cfg14),
+                          lambda o: odometry_launches(o, cfg14, 128))
+    p14_s = time.perf_counter() - t0
+    cl14 = out14["closures"]
+    raw14, opt14 = (odometry.ate(out14[k], gt14)
+                    for k in ("poses", "poses_optimized"))
+    need(len(out14["keyframes"]) > 100 and len(cl14) >= 2
+         and max(b - a for a, b in cl14) >= 24, "figure-eight closures",
+         len(out14["keyframes"]), cl14)
+    need(opt14 <= max(raw14, 0.02 * path_len) and opt14 < 0.02 * path_len,
+         "figure-eight ATE", raw14, opt14, path_len)
+    # the final graph once more, in float32 and in float64
+    kf14 = out14["poses"][out14["keyframes"]]
+    gkw = dict(iters=cfg14.pose_graph_iters, cg_iters=max(400, 3 * len(kf14)),
+               robust_delta=cfg14.robust_delta,
+               robust_warmup=cfg14.robust_warmup)
+    ev14 = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev14[0].record()
+    g32 = posegraph.optimize_pose_graph_sparse(kf14, *out14["edges"], **gkw)
+    ev14[1].record()
+    g64 = posegraph.optimize_pose_graph_sparse_f64(kf14, *out14["edges"],
+                                                   **gkw)
+    ev14[2].record()
+    torch.cuda.synchronize()
+    d64 = float((g32.poses - g64.poses)[:, :3, 3].norm(dim=-1).max())
+    need(bool(torch.isfinite(g64.poses).all()) and d64 < 1e-2,
+         "figure-eight f64 vs f32 solve", d64)
+    k14 = check_path_kernels(mods, rec14, torch)
+    need(max(k14["nn1"]["batch_sizes"]) > 1 and "icp_mega_batch" in k14,
+         "figure-eight: no closure batch among the checked launches", k14)
+    metrics["slam_figure_eight"] = dict(
+        frames=128, seconds=p14_s, keyframes=len(out14["keyframes"]),
+        closures=len(cl14), max_closure_gap=max(b - a for a, b in cl14),
+        closure_candidates=out14["closure_candidates"], ate_raw=raw14,
+        ate_optimized=opt14, path_length=path_len, split_s=split14,
+        sparse_f32_ms=ev14[0].elapsed_time(ev14[1]),
+        sparse_f64_ms=ev14[1].elapsed_time(ev14[2]),
+        f64_vs_f32_max_translation=d64,
+        launches=paths.launches["slam_figure_eight"], kernels_vs_plain=k14)
+    m14 = metrics["slam_figure_eight"]
+    print(f"P14 figure-eight (128 frames, {m14['keyframes']} keyframes, "
+          f"sparse graph): {p14_s:.2f} s; closures {len(cl14)} (max gap "
+          f"{m14['max_closure_gap']}, candidates "
+          f"{out14['closure_candidates']}); ATE raw {raw14:.4f} m, "
+          f"optimized {opt14:.4f} m (< {0.02 * path_len:.4f}); f64 vs f32 "
+          f"solve {d64:.2e} m ({m14['sparse_f32_ms']:.0f} / "
+          f"{m14['sparse_f64_ms']:.0f} ms); split (s) "
+          + ", ".join(f"{k} {v:.3f}" for k, v in split14.items()))
+    print(kernels_line("P14", k14))
+
+    # ---- P15 the registration-dataset driver on P1's pairs -----------------
+    reg_dir = ROOT / "build" / "chip_smoke_reg"
+    shutil.rmtree(reg_dir, ignore_errors=True)
+    (reg_dir / "point_clouds").mkdir(parents=True)
+    clouds15 = torch.cat([dst.points, src.points])          # 2i dst, 2i+1 src
+    nrm15 = fpfh_dense.normals_radius_dense(
+        clouds15, torch.ones(clouds15.shape[:2], dtype=torch.bool,
+                             device=dev), radius=cfg.normal_radius)
+    rows15 = torch.cat([clouds15, nrm15], dim=-1).cpu().numpy()
+    pairs15 = [(2 * i, 2 * i + 1) for i in range(BATCH)]
+    for i in range(BATCH):
+        rows15[i].tofile(reg_dir / "point_clouds" / f"{2 * i}.bin")
+        rows15[BATCH + i].tofile(reg_dir / "point_clouds" / f"{2 * i + 1}.bin")
+    (reg_dir / "pairs.txt").write_text(
+        "idx1,idx2\n" + "".join(f"{a},{b}\n" for a, b in pairs15))
+    io.write_reg_results(str(reg_dir / "gt.txt"), [
+        pipeline.result_row(a, b, gts[i]) for i, (a, b) in enumerate(pairs15)])
+    with recording_k1_k4(pallas_nn, pallas_fpfh, mega) as rec15:
+        t0 = time.perf_counter()
+        res15 = paths.run(
+            "registration_driver", lambda: registration_driver.main(
+                ["--dataset", str(reg_dir), "--pairs",
+                 str(reg_dir / "pairs.txt"), "--output",
+                 str(reg_dir / "result.txt"), "--gt", str(reg_dir / "gt.txt"),
+                 "--batch-size", "8"]),
+            {"nn1": 2, "spfh": 4, "wsum": 4, "icp_mega_batch": 4})
+        p15_s = time.perf_counter() - t0
+    # every pair within the bound; the reference's success rate divides
+    # by the row count with its header (evaluate_rt.py:106), so 16 of 16
+    # reads 16/17
+    need(res15["n_failed"] == 0 and res15["eval"]["n_success"] == BATCH,
+         "registration driver", res15["n_failed"], res15["eval"])
+    k15 = check_path_kernels(mods, rec15, torch)
+    metrics["registration_driver"] = dict(
+        pairs=res15["n_pairs"], failed=res15["n_failed"], seconds=p15_s,
+        kernels_vs_plain=k15, **res15["eval"])
+    print(f"P15 registration driver ({BATCH} pairs of oxford .bin files, "
+          f"batch 8): {res15['n_failed']} failed, "
+          f"{res15['eval']['n_success']} of {BATCH} within the bound "
+          f"(success_rate {res15['eval']['success_rate']:.4f} with the "
+          f"header row), avg RTE {res15['eval']['avg_rte']:.4f} m; "
+          f"{p15_s:.2f} s")
+    print(kernels_line("P15", k15))
+    for name in ("nn1", "spfh", "wsum", "icp_mega_batch"):
+        rows[name]["max_abs_err"] = max(
+            [rows[name]["max_abs_err"]]
+            + [k[name]["max_abs_err"] for k in (k13, k14, k15) if name in k])
+
+    # ---- kernel 9: normals_radius_fused on P13's frames and P1's clouds -----
+    vox = [voxel.voxel_downsample_capped(pc.points, pc.mask, cfg.voxel_size,
+                                         cfg.downsample_capacity)[0]
+           for pc in (src, dst)]
+    pts1 = torch.cat([v.points for v in vox]).contiguous()
+    msk1 = torch.cat([v.mask for v in vox]).contiguous()
+    k9_cases = {"slam_frames": (pts13, msk13, 2.5 * cfg13.voxel_leaf, {}),
+                "register_pairs_voxels": (
+                    pts1, msk1, cfg.normal_radius,
+                    dict(x_banded=True, x_slack=cfg.voxel_size))}
+
+    def k9_run():
+        nf = {k: pallas_fpfh.normals_radius_fused(p_, m_, radius=r_, **kw_)
+              for k, (p_, m_, r_, kw_) in k9_cases.items()}
+        # the reference's opt-in: K9's normals into the banded descriptor
+        feats = pallas_fpfh.fpfh_fused(
+            pts1, msk1, normals=nf["register_pairs_voxels"],
+            radius=cfg.feature_radius, x_banded=True, x_slack=cfg.voxel_size)
+        return nf, feats
+    with Recorder(pallas_fpfh, "moments") as r9, \
+            Recorder(pallas_fpfh, "spfh") as r9s, \
+            Recorder(pallas_fpfh, "wsum") as r9w:
+        nf9, feats9 = paths.run("normals_fused", k9_run,
+                                {"moments": 2, "spfh": 1, "wsum": 1})
+    need(bool(torch.isfinite(feats9).all()), "fpfh with fused normals")
+    fp9 = check_fpfh(mods, r9s.calls, r9w.calls, torch, timed=False)
+    for name in ("spfh", "wsum"):
+        rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"],
+                                        fp9[name]["max_abs_err"])
+    print(f"   K2, K3 vs plain on the fused normals' FPFH: max |err| "
+          f"{fp9['spfh']['max_abs_err']:.1e}, "
+          f"{fp9['wsum']['max_abs_err']:.1e}")
+    k9 = {}
+    for (case, (p_, m_, r_, kw_)), args in zip(k9_cases.items(), r9.calls):
+        amat, dbmat, cent, base, nt, q_tile, db_tile, r2 = args
+        mk, mp_ = pallas_fpfh.moments(*args), pallas_fpfh.moments_plain(*args)
+        torch.cuda.synchronize()
+        err, unequal, ulp1 = ulp_check(mk, mp_, torch)
+        need(ulp1, "moments vs plain beyond one ulp", case, err)
+        # normals against the dense reference default where the least
+        # eigenvector is well defined: at least 3 neighbours, lambda1 >
+        # 10 lambda0, and a gap lambda1 - lambda0 above 1000 eps_f32
+        # E|p|^2, the cancellation error of the dense path's raw moments
+        mom = mp_[:, :p_.shape[1]].double()
+        cnt = mom[..., 9].clamp_min(1.0)
+        mu, exx = mom[..., :3] / cnt[..., None], mom[..., 3:9] / cnt[..., None]
+        cov = torch.stack([
+            exx[..., 0] - mu[..., 0] ** 2, exx[..., 3] - mu[..., 0] * mu[..., 1],
+            exx[..., 4] - mu[..., 0] * mu[..., 2],
+            exx[..., 3] - mu[..., 0] * mu[..., 1], exx[..., 1] - mu[..., 1] ** 2,
+            exx[..., 5] - mu[..., 1] * mu[..., 2],
+            exx[..., 4] - mu[..., 0] * mu[..., 2],
+            exx[..., 5] - mu[..., 1] * mu[..., 2],
+            exx[..., 2] - mu[..., 2] ** 2], dim=-1).reshape(
+                mom.shape[:2] + (3, 3))
+        lam = torch.linalg.eigvalsh(cov.cpu()).to(dev)   # a check only
+        rows_c = torch.arange(mom.shape[1], device=dev) // q_tile
+        p2 = ((mu + cent[:, rows_c].double()) ** 2).sum(-1) + lam.sum(-1)
+        well = (m_ & (mom[..., 9] >= 3)
+                & (lam[..., 1] > 10 * lam[..., 0].clamp_min(0.0))
+                & (lam[..., 1] - lam[..., 0] > 1e3 * 2.0 ** -23 * p2))
+        dense = fpfh_dense.normals_radius_dense(p_, m_, radius=r_)
+        dots = (nf9[case] * dense).sum(-1).abs()[well]
+        # 1 - |dot| < 1e-4 (about 0.8 degrees): 25x the largest value
+        # measured on these inputs (4e-6, H100), far below what a wrong
+        # centroid shift gives
+        gap = 1.0 - float(dots.min())
+        need(gap < 1e-4, "fused vs dense normals", case, gap)
+        visited = int(nt.sum()) * q_tile * db_tile
+        within = float(mp_[..., 9].sum())
+        bms, by = bound(nbytes(*args[:5], mk), 10.0 * visited + 10.0 * within)
+        k9[case] = dict(
+            shape=list(amat.shape), max_abs_err=err, unequal=unequal,
+            checked_normals=int(well.sum()),
+            excluded_normals=int((m_ & ~well).sum()),
+            min_dot_vs_dense=float(dots.min()),
+            ms=cuda_ms(lambda a=args: pallas_fpfh.moments(*a), reps=10),
+            plain_ms=cuda_ms(lambda a=args: pallas_fpfh.moments_plain(*a),
+                             reps=2),
+            dense_ms=cuda_ms(lambda: fpfh_dense.normals_radius_dense(
+                p_, m_, radius=r_), reps=5),
+            fused_normals_ms=cuda_ms(lambda: pallas_fpfh.normals_radius_fused(
+                p_, m_, radius=r_, **kw_), reps=5),
+            bound_ms=bms, bound_by=by, visited_pairs=visited,
+            within_pairs=within)
+        print(f"kernel 9 on {case} {list(amat.shape)}: vs plain max |err| "
+              f"{err:.1e}, {unequal} of {mk.numel()} entries unequal (all "
+              f"within 1 ulp); normals vs dense max 1 - |dot| {gap:.1e} "
+              f"(limit 1e-4, margin {1e-4 / max(gap, 1e-12):.0f}x) on "
+              f"{int(well.sum())} well-conditioned points "
+              f"({k9[case]['excluded_normals']} excluded); "
+              f"{k9[case]['ms']:.3f} ms (bound {bms:.4f} ms, {by}; plain "
+              f"{k9[case]['plain_ms']:.1f} ms); normals: fused "
+              f"{k9[case]['fused_normals_ms']:.3f} ms, dense "
+              f"{k9[case]['dense_ms']:.3f} ms")
+    metrics["normals_fused"] = k9
+    rows["moments"] = dict(
+        max_abs_err=max(v["max_abs_err"] for v in k9.values()),
+        ms=sum(v["ms"] for v in k9.values()),
+        plain_ms=sum(v["plain_ms"] for v in k9.values()),
+        bound_ms=sum(v["bound_ms"] for v in k9.values()),
+        bound_by="operations" if all(v["bound_by"] == "operations"
+                                     for v in k9.values()) else "bytes",
+        library_ms=None, per_case=k9)
+
     # ---- kernels line, card, result --------------------------------------
     meta = {
         "nn1": ("pctpu_torch/csrc/nn1.cu",
@@ -1410,6 +1902,8 @@ def main(argv=None):
         "icp_moments_banded_v2": ("pctpu_torch/csrc/banded.cu",
                                   "pctpu/ops/pallas_banded.py:321 "
                                   "_moments_kernel_v2"),
+        "moments": ("pctpu_torch/csrc/fpfh.cu",
+                    "pctpu/features/pallas_fpfh.py:177 _moments_kernel"),
         "fps_pallas": ("pctpu_torch/csrc/fps.cu",
                        "pctpu/ops/pallas_fps.py:29 _fps_kernel"),
         "fps_pallas_batched": ("pctpu_torch/csrc/fps.cu",
@@ -1445,7 +1939,8 @@ def main(argv=None):
                        "fps_pallas: its 4 launches in P9; gather_rows: "
                        "its 2 launches in the group_points_pallas phase; "
                        "scatter_add_rows: one P10 step's launch, kernel "
-                       "12's backward); launches: summed over the paths")
+                       "12's backward; moments: its 2 launches in the "
+                       "kernel-9 phase); launches: summed over the paths")
     print(f"total {report['seconds']:.1f} s")
     (ROOT / "build").mkdir(exist_ok=True)
     (ROOT / "build" / "chip_smoke.json").write_text(

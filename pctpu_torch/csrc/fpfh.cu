@@ -1,4 +1,5 @@
-// K2 spfh and K3 wsum: the two passes of the fused FPFH-33 descriptor.
+// K2 spfh and K3 wsum: the two passes of the fused FPFH-33 descriptor;
+// K9 moments (below them): the moment pass of the radius normals.
 //
 // Replace the TPU kernels pctpu/features/pallas_fpfh.py:_spfh_kernel and
 // _wsum_kernel (both launched by _fpfh_fused_impl).
@@ -168,7 +169,106 @@ wsum_kernel(const float* __restrict__ amat, const float* __restrict__ dbmat,
   for (int k = 0; k < kH; ++k) o[k] = acc[k] / den;
 }
 
+// K9 moments: the radius-neighbourhood moments of the normals pass.
+//
+// Replaces the TPU kernel pctpu/features/pallas_fpfh.py:_moments_kernel
+// (launched by normals_radius_fused). Per query row of query tile i,
+// over the db columns of the tile's x-band:
+//   w      = (|q|^2 + |p|^2 - 2 q.p) + pen <= r^2   (self included)
+//   out[q] = sum over w of [x,y,z,x^2,y^2,z^2,xy,xz,yz,1], with
+//            (x,y,z) = p - cent[i], the tile's centroid (0 on a dead col).
+// The TPU kernel sums through a [TQ,TN]x[TN,10] f32 dot in an unspecified
+// order; here each query sums its features in f64 and rounds once to
+// f32, as the plain version does, so the two agree to within one f32 ulp.
+//
+// Bound on an H100: operations. About 10 FP32 operations per in-band
+// pair (the distance test) and 10 f64 adds per pair inside the radius;
+// the inputs (a few MB) are read from L2.
+//
+// Design (a first, simple one): grid (nq, B), one query per thread (the
+// block is the query tile), the in-band db staged in shared memory in
+// chunks of 128 columns. The shift is the tile's centroid, shared by
+// every thread of the block, so each column's 10 shifted features are
+// computed once per block while staging, not once per pair. A tile with
+// no valid point has nt = 0 and writes zeros.
+__global__ void __launch_bounds__(kQT)
+moments_kernel(const float* __restrict__ amat,
+               const float* __restrict__ dbmat,
+               const float* __restrict__ cent, const int* __restrict__ base,
+               const int* __restrict__ nt, float* __restrict__ out, int Np,
+               int db_tile, float r2) {
+  __shared__ float sp[5][kTN];       // x, y, z, |p|^2, pen
+  __shared__ float sf[10][kTN];      // the shifted features
+  const int b = blockIdx.y, i = blockIdx.x, tid = threadIdx.x;
+  const int nq = gridDim.x, qt = blockDim.x;
+  const int row = i * qt + tid;
+  const float* a = amat + ((size_t)b * Np + row) * 4;
+  const float q0 = a[0], q1 = a[1], q2 = a[2], qq = a[3];
+  const float* c3 = cent + ((size_t)b * nq + i) * 3;
+  const float cx = c3[0], cy = c3[1], cz = c3[2];
+  double acc[10];
+#pragma unroll
+  for (int k = 0; k < 10; ++k) acc[k] = 0.0;
+
+  const int start = base[b * nq + i] * db_tile;
+  const int ncols = nt[b * nq + i] * db_tile;
+  const float* dbb = dbmat + (size_t)b * 5 * Np;
+  for (int off = 0; off < ncols; off += kTN) {
+    __syncthreads();
+    for (int c = tid; c < kTN; c += qt) {
+      const int col = start + off + c;
+      float v[5];
+#pragma unroll
+      for (int r = 0; r < 5; ++r) v[r] = dbb[(size_t)r * Np + col];
+#pragma unroll
+      for (int r = 0; r < 5; ++r) sp[r][c] = v[r];
+      const bool dead = v[4] > 1.0f;
+      const float x = dead ? 0.f : v[0] - cx;
+      const float y = dead ? 0.f : v[1] - cy;
+      const float z = dead ? 0.f : v[2] - cz;
+      sf[0][c] = x;
+      sf[1][c] = y;
+      sf[2][c] = z;
+      sf[3][c] = x * x;
+      sf[4][c] = y * y;
+      sf[5][c] = z * z;
+      sf[6][c] = x * y;
+      sf[7][c] = x * z;
+      sf[8][c] = y * z;
+      sf[9][c] = dead ? 0.f : 1.f;
+    }
+    __syncthreads();
+    for (int c = 0; c < kTN; ++c) {
+      const float qp = q0 * sp[0][c] + q1 * sp[1][c] + q2 * sp[2][c];
+      const float d2 = (qq + sp[3][c]) - 2.0f * qp;
+      if (!(d2 + sp[4][c] <= r2)) continue;
+#pragma unroll
+      for (int k = 0; k < 10; ++k) acc[k] += (double)sf[k][c];
+    }
+  }
+  float* o = out + ((size_t)b * Np + row) * 10;
+#pragma unroll
+  for (int k = 0; k < 10; ++k) o[k] = (float)acc[k];
+}
+
 }  // namespace
+
+// amat [B,Np,4], dbmat [B,5,Np], cent [B,nq,3], base/nt [B,nq] i32 ->
+// out [B,Np,10]. nq = Np / q_tile; needs q_tile % 32 == 0, q_tile <= 256
+// and db_tile % 128 == 0.
+extern "C" int pct_moments(const float* amat, const float* dbmat,
+                           const float* cent, const int* base, const int* nt,
+                           float* out, int B, int Np, int q_tile, int db_tile,
+                           float r2, cudaStream_t stream) {
+  if (q_tile <= 0 || q_tile % 32 != 0 || q_tile > kQT || db_tile % kTN != 0
+      || Np % q_tile != 0)
+    return (int)cudaErrorInvalidValue;
+  if (B <= 0 || Np <= 0) return 0;
+  dim3 grid(Np / q_tile, B);
+  moments_kernel<<<grid, q_tile, 0, stream>>>(amat, dbmat, cent, base, nt,
+                                              out, Np, db_tile, r2);
+  return (int)cudaGetLastError();
+}
 
 // amat [B,Np,11], dbmat [B,12,Np], base/nt [B,Np/256] i32 ->
 // hist [B,Np,33], cnt [B,Np]. Needs q_tile == 256, db_tile % 128 == 0.

@@ -40,7 +40,13 @@ def normals_radius_dense(points: torch.Tensor, mask: torch.Tensor,
               - 2.0 * torch.matmul(q, ptsT))
         w = (d2 <= r2).float()                                # [B,Q,N]
         moms.append(torch.matmul(w, feats))                   # [B,Q,10]
-    mom = torch.cat(moms, dim=1)
+    return normals_from_moments(torch.cat(moms, dim=1))
+
+
+def normals_from_moments(mom: torch.Tensor) -> torch.Tensor:
+    """[...,10] neighbourhood moments [x,y,z,x2,y2,z2,xy,xz,yz,count]
+    (shifted or not: the covariance is translation-invariant) -> [...,3]
+    unit normals, the least eigenvector of the covariance."""
     cnt = torch.clamp_min(mom[..., 9], 1.0)
     mu = mom[..., 0:3] / cnt[..., None]
     exx = mom[..., 3:9] / cnt[..., None]
@@ -53,7 +59,7 @@ def normals_radius_dense(points: torch.Tensor, mask: torch.Tensor,
     C = torch.stack([
         torch.stack([c00, c01, c02], dim=-1),
         torch.stack([c01, c11, c12], dim=-1),
-        torch.stack([c02, c12, c22], dim=-1)], dim=-2)        # [B,N,3,3]
+        torch.stack([c02, c12, c22], dim=-1)], dim=-2)        # [...,3,3]
     _, vecs = eigh3(C)
     nrm = vecs[..., :, 0]
     return nrm / torch.clamp_min(

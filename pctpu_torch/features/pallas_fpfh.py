@@ -1,6 +1,7 @@
 """Fused FPFH-33 — kernels K2 `spfh` and K3 `wsum` (`csrc/fpfh.cu`), the
 port of `pctpu/features/pallas_fpfh.py` (`_spfh_kernel`, `_wsum_kernel`,
-driven by `_fpfh_fused_impl`).
+driven by `_fpfh_fused_impl`) — and the radius normals' moment pass,
+kernel K9 `moments` (`_moments_kernel`, driven by `normals_radius_fused`).
 
 Pass 1 (K2) builds each point's SPFH: 3 x 11-bin histograms of the
 Darboux angles to every radius-r neighbour (self excluded), scaled by
@@ -13,6 +14,14 @@ Exact x-band pruning: on a cell-lexsorted voxel cloud the radius-r
 neighbours of a query tile lie in one contiguous x range; `_band_tables`
 gives each (batch, query tile) the [base, base + nt) db tiles to visit.
 A skipped column has |dx| > r, so it could never enter a histogram.
+
+The normals pass (K9) sums each query's radius-neighbourhood moments
+[x,y,z,x2,y2,z2,xy,xz,yz,1] of coordinates shifted by its query tile's
+centroid: second moments of raw LiDAR coordinates lose ~eps |p|^2 to
+cancellation in E[xx^T] - mu mu^T, shifted ones keep |x'| ~ radius.
+Binary weights, self included (`normals_radius_dense` semantics). The
+moments are summed in f64 and rounded once, in the kernel and its plain
+version alike (the TPU kernel's f32 dot sums in an unspecified order).
 """
 from __future__ import annotations
 
@@ -23,6 +32,7 @@ import torch
 
 from pctpu_torch import kernels
 from pctpu_torch.core.cloud import round_up
+from pctpu_torch.features.fpfh_dense import normals_from_moments
 from pctpu_torch.ops.eigh3 import _cross
 
 N_BINS = 11
@@ -272,6 +282,131 @@ spfh.launches = 0
 wsum.launches = 0
 
 
+def _shifted_features(db: torch.Tensor, cent: torch.Tensor) -> torch.Tensor:
+    """db [B,5,TN] (p, |p|^2, pen) and the tile centroid cent [B,3] ->
+    [B,TN,10] f32 features [x,y,z,x2,y2,z2,xy,xz,yz,1] of p - cent, zero
+    on dead (penalised) columns."""
+    dead = db[:, 4] > 1.0                                  # [B,TN]
+    x, y, z = (torch.where(dead, 0.0, db[:, k] - cent[:, k, None])
+               for k in range(3))
+    one = torch.where(dead, 0.0, 1.0)
+    return torch.stack([x, y, z, x * x, y * y, z * z, x * y, x * z, y * z,
+                        one], dim=-1)
+
+
+def moments_plain(amat, dbmat, cent, base, nt, q_tile: int, db_tile: int,
+                  r2: float):
+    """Plain PyTorch version of K9: [B,Np,10] shifted radius-neighbourhood
+    moments, the same tests as the kernel, one (query tile, db tile) at a
+    time; each tile's sum is a float64 product, rounded once at the end."""
+    b, np_, _ = amat.shape
+    dev = amat.device
+    out = torch.zeros((b, np_, 10), dtype=torch.float32, device=dev)
+    for i in range(np_ // q_tile):
+        A = amat[:, i * q_tile:(i + 1) * q_tile]                # [B,TQ,4]
+        q, q2 = A[..., 0:3], A[..., 3:4]
+        acc = torch.zeros((b, q_tile, 10), dtype=torch.float64, device=dev)
+        for j in range(int(nt[:, i].max()) if b else 0):
+            cols, live = _band_windows(base, nt, i, j, db_tile, dev)
+            db = _db_tile(dbmat, cols)                          # [B,5,TN]
+            d2 = q2 + db[:, 3:4] - 2.0 * _dot3(q, db[:, 0:3])
+            w = (d2 + db[:, 4:5] <= r2) & live[:, None, None]
+            feat = _shifted_features(db, cent[:, i])
+            acc += torch.matmul(w.double(), feat.double())
+        out[:, i * q_tile:(i + 1) * q_tile] = acc.float()
+    return out
+
+
+def moments(amat, dbmat, cent, base, nt, q_tile: int, db_tile: int,
+            r2: float):
+    """K9 wrapper: amat [B,Np,4] (q, |q|^2), dbmat [B,5,Np] (p^T, |p|^2,
+    pen), cent [B,nq,3], base/nt [B,nq] int32 -> [B,Np,10] f32. CPU
+    tensors take the plain version; CUDA tensors launch the kernel or
+    raise. The kernel runs one query per thread and needs q_tile a
+    multiple of 32 up to 256 and db_tile a multiple of 128."""
+    b, np_, c = amat.shape
+    nq = np_ // q_tile if q_tile else 0
+    if (c != 4 or dbmat.shape != (b, 5, np_) or np_ % q_tile
+            or np_ % db_tile or cent.shape != (b, nq, 3)
+            or base.shape != (b, nq) or nt.shape != base.shape):
+        raise ValueError(f"moments: bad shapes amat {tuple(amat.shape)}, "
+                         f"dbmat {tuple(dbmat.shape)}, cent "
+                         f"{tuple(cent.shape)}, base {tuple(base.shape)}, "
+                         f"nt {tuple(nt.shape)}")
+    if amat.device.type == "cpu":
+        return moments_plain(amat, dbmat, cent, base, nt, q_tile, db_tile, r2)
+    f32, i32 = torch.float32, torch.int32
+    kernels.require_cuda("moments", amat, dbmat, cent, base, nt,
+                         dtypes=(f32, f32, f32, i32, i32))
+    if q_tile % 32 or q_tile > 256 or db_tile % 128:
+        raise ValueError("moments kernel needs q_tile % 32 == 0, q_tile <= "
+                         f"256 and db_tile % 128 == 0, got {q_tile}, "
+                         f"{db_tile}")
+    out = torch.empty((b, np_, 10), dtype=f32, device=amat.device)
+    fn = kernels.entry("fpfh.cu", "pct_moments", n_ptr=6, n_int=4, n_float=1)
+    kernels.check(fn(amat.data_ptr(), dbmat.data_ptr(), cent.data_ptr(),
+                     base.data_ptr(), nt.data_ptr(), out.data_ptr(), b, np_,
+                     q_tile, db_tile, r2, kernels.stream_ptr(amat.device)),
+                  "moments")
+    moments.launches += 1
+    return out
+
+
+moments.launches = 0
+
+
+def _moments_inputs(points: torch.Tensor, mask: torch.Tensor, np_: int,
+                    q_tile: int):
+    """K9's operands: amat [B,Np,4] = (p, |p|^2), dbmat [B,5,Np] = (p^T,
+    |p|^2, pen), each query tile's centroid of its valid points
+    cent [B,nq,3] (0 for a tile with none), and the column validity."""
+    b, n, _ = points.shape
+    pts = torch.where(mask[..., None], points.float(),
+                      torch.zeros_like(points, dtype=torch.float32))
+    p = torch.nn.functional.pad(pts, (0, 0, 0, np_ - n))
+    p2 = torch.sum(p * p, dim=-1)
+    col_valid = torch.nn.functional.pad(mask, (0, np_ - n))
+    pen = torch.where(col_valid, 0.0, BIG).float()
+    amat = torch.cat([p, p2[..., None]], dim=-1)
+    dbmat = torch.cat([p.transpose(1, 2), p2[:, None], pen[:, None]], dim=1)
+    vt = col_valid.reshape(b, -1, q_tile).float()
+    cent = (torch.sum(p.reshape(b, -1, q_tile, 3) * vt[..., None], dim=2)
+            / torch.clamp_min(torch.sum(vt, dim=2), 1.0)[..., None])
+    return (amat.contiguous(), dbmat.contiguous(), cent.contiguous(),
+            col_valid)
+
+
+def _band(xs, col_valid, radius, q_tile, db_tile, x_banded, x_slack):
+    """The (base, nt) db-tile tables: the x-band, or every tile."""
+    b, np_ = xs.shape
+    if x_banded:
+        return _band_tables(xs.contiguous(), col_valid, float(radius),
+                            q_tile, db_tile, slack=float(x_slack))
+    nq = np_ // q_tile
+    return (torch.zeros((b, nq), dtype=torch.int32, device=xs.device),
+            torch.full((b, nq), np_ // db_tile, dtype=torch.int32,
+                       device=xs.device))
+
+
+def normals_radius_fused(points: torch.Tensor, mask: torch.Tensor,
+                         radius: float = 4.0, q_tile: int = 256,
+                         db_tile: int = 512, x_banded: bool = False,
+                         x_slack: float = 0.0) -> torch.Tensor:
+    """Radius-covariance normals with the moment pass in kernel K9
+    (optionally x-band pruned): a drop-in for
+    `fpfh_dense.normals_radius_dense` ([B,N,3] + [B,N] -> [B,N,3] unit
+    normals, the least covariance eigenvector via `ops.eigh3`). Set
+    `x_banded=True` only on clouds sorted by x up to `x_slack`."""
+    n = points.shape[1]
+    np_ = round_up(n, max(q_tile, db_tile))
+    amat, dbmat, cent, col_valid = _moments_inputs(points, mask, np_, q_tile)
+    base, nt = _band(amat[..., 0], col_valid, radius, q_tile, db_tile,
+                     x_banded, x_slack)
+    mom = moments(amat, dbmat, cent, base, nt, q_tile, db_tile,
+                  float(radius) ** 2)
+    return normals_from_moments(mom[:, :n])
+
+
 def fpfh_fused(points: torch.Tensor,
                mask: Optional[torch.Tensor] = None,
                normals: Optional[torch.Tensor] = None,
@@ -299,15 +434,8 @@ def fpfh_fused(points: torch.Tensor,
     np_ = round_up(n, max(q_tile, db_tile))
     r2 = float(radius) ** 2
     amat, dbmat, col_valid = _pack(points, mask, normals, np_)
-    nq = np_ // q_tile
-    if x_banded:
-        base, nt = _band_tables(amat[..., 0].contiguous(), col_valid,
-                                float(radius), q_tile, db_tile,
-                                slack=float(x_slack))
-    else:
-        base = torch.zeros((b, nq), dtype=torch.int32, device=points.device)
-        nt = torch.full((b, nq), np_ // db_tile, dtype=torch.int32,
-                        device=points.device)
+    base, nt = _band(amat[..., 0], col_valid, radius, q_tile, db_tile,
+                     x_banded, x_slack)
     s33, _ = spfh(amat, dbmat, base, nt, q_tile, db_tile, r2)
     nbr = wsum(amat, dbmat, base, nt, s33, q_tile, db_tile, r2)
 

@@ -16,6 +16,7 @@ from pctpu_torch import kernels
 
 BIG = 1e30
 DB_TILE = 2048      # plain version's db chunk (bounds its [B,M,tile] temps)
+Q_CHUNK = 256       # plain version's query chunk on the CPU
 
 
 def _penalty(db_mask: Optional[torch.Tensor], b: int, n: int,
@@ -28,18 +29,30 @@ def _penalty(db_mask: Optional[torch.Tensor], b: int, n: int,
 def nearest_plain(query: torch.Tensor, db: torch.Tensor,
                   pen: torch.Tensor, db_tile: int = DB_TILE):
     """Plain PyTorch version of K1: query [B,M,3], db [B,N,3], pen [B,N]
-    -> (d2 [B,M] f32, idx [B,M] int32)."""
-    b, m, _ = query.shape
+    -> (d2 [B,M] f32, idx [B,M] int32). On the CPU the queries go
+    Q_CHUNK at a time, so the [B,chunk,tile] temporaries stay in cache
+    (each query's result is the same either way)."""
+    m = query.shape[1]
+    step = Q_CHUNK if query.device.type == "cpu" else max(m, 1)
+    if m > step:
+        parts = [nearest_plain(query[:, s:s + step], db, pen, db_tile)
+                 for s in range(0, m, step)]
+        return (torch.cat([p[0] for p in parts], dim=1),
+                torch.cat([p[1] for p in parts], dim=1))
+    b = query.shape[0]
     minv = torch.full((b, m), BIG, dtype=torch.float32, device=query.device)
     mini = torch.zeros((b, m), dtype=torch.int32, device=query.device)
     qx, qy, qz = (query[..., k:k + 1] for k in range(3))     # [B,M,1]
     for start in range(0, db.shape[1], db_tile):
         blk = db[:, start:start + db_tile]
-        dx = qx - blk[:, None, :, 0]
-        dy = qy - blk[:, None, :, 1]
-        dz = qz - blk[:, None, :, 2]
-        d2 = dx * dx + dy * dy + dz * dz
-        d2 = d2 + pen[:, None, start:start + db_tile]
+        # ((dx*dx + dy*dy) + dz*dz) + pen, each op rounded (no FMA)
+        d2 = qx - blk[:, None, :, 0]
+        d2.mul_(d2)
+        t = qy - blk[:, None, :, 1]
+        d2.add_(t.mul_(t))
+        t = torch.sub(qz, blk[:, None, :, 2], out=t)
+        d2.add_(t.mul_(t))
+        d2.add_(pen[:, None, start:start + db_tile])
         tmin, targ = torch.min(d2, dim=2)      # first index of the minimum
         better = tmin < minv                   # strict: earlier tile wins
         minv = torch.where(better, tmin, minv)

@@ -1,13 +1,16 @@
-"""Point-to-point ICP (port of `pctpu/register/icp.py`): the while-loop
-`icp_point_to_point`, the fixed-iteration `icp_fixed_iters` and the exact
-polish `icp_refine_exact` (1-NN through K1), the banded ICP loops
+"""ICP (port of `pctpu/register/icp.py`): the while-loop
+`icp_point_to_point` and `icp_point_to_plane`, the fixed-iteration
+`icp_fixed_iters` and `icp_fixed_iters_p2pl` and the exact polish
+`icp_refine_exact` (1-NN through K1), the banded ICP loops
 `icp_fixed_iters_banded` (K6), `_fused` (K7) and `_fused_v2` (K8), and the
 whole-loop ICPs `icp_fixed_iters_banded_mega` (kernel 5) and
 `icp_fixed_iters_banded_mega_batch` / `icp_refine_exact_mega_batch` (K4).
 
 Entry points run on CUDA unless the caller passes `device="cpu"`; the
-kernels' plain versions run on the CPU. Point-to-plane ICP, the grid ICP
-and `_so3_exp` are not ported yet.
+kernels' plain versions run on the CPU. The point-to-plane 6x6 solves go
+through `torch.linalg.solve_ex`, which does not wait on the host to check
+its result, so a fixed-iteration loop on the card never syncs. The grid
+ICP (`icp_fixed_iters_grid`) is not ported yet.
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ from pctpu_torch.core import se3
 from pctpu_torch.device import DeviceLike, f32_square, resolve_device
 from pctpu_torch.ops import pallas_banded as banded
 from pctpu_torch.ops import pallas_icp_mega as mega
+from pctpu_torch.ops.eigh3 import _cross
 from pctpu_torch.ops.gather import gather_points
 from pctpu_torch.ops.knn import nearest
 from pctpu_torch.ops.pallas_banded import LUT_BINS, build_banded
@@ -98,6 +102,83 @@ def icp_point_to_point(src: torch.Tensor, src_mask: torch.Tensor,
                      rmse, torch.tensor(converged, device=dev))
 
 
+def _so3_exp(omega: torch.Tensor) -> torch.Tensor:
+    """Rodrigues' formula, [...,3] -> [...,3,3]; I + [omega]x below
+    |omega| = 1e-8. The norm is taken of a safe input on that branch, so
+    forward-mode derivatives (`torch.func.jacfwd`) stay finite at 0."""
+    s2 = torch.sum(omega * omega, dim=-1, keepdim=True)
+    small = torch.sqrt(s2) < 1e-8
+    theta = torch.sqrt(torch.where(small, torch.ones_like(s2), s2))
+    k = omega / theta
+    eye = torch.eye(3, dtype=omega.dtype, device=omega.device)
+    st, ct = torch.sin(theta)[..., None], torch.cos(theta)[..., None]
+    K = _hat(k)
+    R = eye + st * K + (1 - ct) * (K @ K)
+    return torch.where(small[..., None], eye + _hat(omega), R)
+
+
+def _hat(v: torch.Tensor) -> torch.Tensor:
+    """[...,3] -> [...,3,3] cross-product matrix."""
+    z = torch.zeros_like(v[..., 0])
+    return torch.stack([
+        torch.stack([z, -v[..., 2], v[..., 1]], dim=-1),
+        torch.stack([v[..., 2], z, -v[..., 0]], dim=-1),
+        torch.stack([-v[..., 1], v[..., 0], z], dim=-1)], dim=-2)
+
+
+def _p2pl_step(src_t, w, q, n):
+    """One small-angle Gauss-Newton step of sum w ((p' - q) . n)^2 on
+    [...,N] associations -> (dT [...,4,4], xi [...,6], r [...,N]). The
+    6x6 normal equations are solved without a host check."""
+    r = torch.sum((src_t - q) * n, dim=-1)
+    J = torch.cat([_cross(src_t, n), n], dim=-1)           # [...,N,6]
+    Jw = J * w[..., None]
+    A = Jw.transpose(-1, -2) @ J
+    b = -(Jw.transpose(-1, -2) @ r[..., None])[..., 0]
+    A = A + 1e-6 * torch.eye(6, dtype=A.dtype, device=A.device)
+    xi = torch.linalg.solve_ex(A, b)[0]
+    return se3.make_transform(_so3_exp(xi[..., :3]), xi[..., 3:]), xi, r
+
+
+def icp_point_to_plane(src: torch.Tensor, src_mask: torch.Tensor,
+                       dst: torch.Tensor, dst_normals: torch.Tensor,
+                       dst_mask: torch.Tensor,
+                       init_T: Optional[torch.Tensor] = None,
+                       cfg: ICPConfig = ICPConfig(),
+                       device: DeviceLike = None) -> ICPResult:
+    """Point-to-plane ICP by small-angle Gauss-Newton with a convergence
+    test: per iteration, 1-NN association (K1), J_i = [p' x n_i, n_i] and
+    one 6x6 solve. Stops after `max_iters`, when the increment's rotation
+    and translation norms are below (rot_tol, trans_tol), or when fewer
+    than `min_associations` pass the gate (then the pose stays). One host
+    sync per iteration, for the test."""
+    dev = resolve_device(device)
+    src, src_mask, dst, dst_normals, dst_mask, init_T = _on(
+        dev, src, src_mask, dst, dst_normals, dst_mask, init_T)
+    T = _eye((), dev) if init_T is None else init_T.float()
+    thresh2 = f32_square(cfg.dist_thresh)
+    it, converged = 0, False
+    num = torch.zeros((), dtype=torch.int32, device=dev)
+    rmse = torch.zeros((), dtype=torch.float32, device=dev)
+    while it < cfg.max_iters and not converged:
+        src_t = se3.apply_transform(T, src)
+        d2, idx = _associate(src_t, dst, dst_mask, cfg)
+        w = (src_mask & (d2 < thresh2)).float()
+        num = w.sum().int()
+        dT, xi, r = _p2pl_step(src_t, w, gather_points(dst, idx),
+                               gather_points(dst_normals, idx))
+        conv = ((torch.linalg.vector_norm(xi[:3]) <= cfg.rot_tol)
+                & (torch.linalg.vector_norm(xi[3:]) <= cfg.trans_tol))
+        failed = num < cfg.min_associations
+        T = torch.where(failed, T, dT @ T)
+        converged = bool(conv | failed)
+        rmse = torch.sqrt(torch.sum(r * r * w) / torch.clamp_min(w.sum(),
+                                                                 1.0))
+        it += 1
+    return ICPResult(T, torch.tensor(it, dtype=torch.int32, device=dev), num,
+                     rmse, torch.tensor(converged, device=dev))
+
+
 def _trim_weights(w: torch.Tensor, d2: torch.Tensor, trim: float,
                   active=None) -> torch.Tensor:
     """Trimmed ICP: keep only the best `trim` fraction of the valid
@@ -135,6 +216,34 @@ def icp_fixed_iters(src: torch.Tensor, src_mask: torch.Tensor,
         w = _trim_weights(w, d2, trim, active=i >= iters // 2)
         R, t = weighted_procrustes(src_t, gather_points(dst, idx), w)
         T = se3.make_transform(R, t) @ T
+    return T
+
+
+def icp_fixed_iters_p2pl(src: torch.Tensor, src_mask: torch.Tensor,
+                         dst: torch.Tensor, dst_normals: torch.Tensor,
+                         dst_mask: torch.Tensor,
+                         init_T: Optional[torch.Tensor] = None,
+                         iters: int = 25, dist_thresh: float = 2.0,
+                         query_chunk: int = 2048, trim: float = 1.0,
+                         device: DeviceLike = None) -> torch.Tensor:
+    """`iters` point-to-plane Gauss-Newton iterations, no early exit:
+    src [N,3], dst/dst_normals [M,3] (or [B,...], the pairs in lockstep)
+    -> T [4,4] (or [B,4,4]). Per iteration one K1 association and one
+    6x6 solve per pair, with no host sync. The trim (when < 1) is on for
+    the second half of the schedule. The odometry front end's default."""
+    dev = resolve_device(device)
+    src, src_mask, dst, dst_normals, dst_mask, init_T = _on(
+        dev, src, src_mask, dst, dst_normals, dst_mask, init_T)
+    T = (_eye(src.shape[:-2], dev) if init_T is None else init_T.float())
+    thresh2 = f32_square(dist_thresh)
+    for i in range(iters):
+        src_t = se3.apply_transform(T, src)
+        d2, idx = nearest(src_t, dst, dst_mask, query_chunk)
+        w = (src_mask & (d2 < thresh2)).float()
+        w = _trim_weights(w, d2, trim, active=i >= iters // 2)
+        dT, _, _ = _p2pl_step(src_t, w, gather_points(dst, idx),
+                              gather_points(dst_normals, idx))
+        T = dT @ T
     return T
 
 

@@ -313,3 +313,12 @@ def register_pair(src: PointCloud, dst: PointCloud,
             generator = torch.Generator(device=dev).manual_seed(0)
         sampler = generator_sampler(generator)
     return _register_pair_impl(src, dst, sampler, cfg, dev)
+
+
+def result_row(idx1: int, idx2: int, T) -> tuple:
+    """One result-file row in the reference's format (`main.py:213-218`):
+    (idx1, idx2, t [3], q_wxyz [4]) of the given transform, as numpy. Pass
+    the transform in the direction the evaluator expects (mapping cloud
+    idx2 onto idx1)."""
+    t, q = se3.transform_to_tq(torch.as_tensor(T, dtype=torch.float32))
+    return idx1, idx2, t.cpu().numpy(), q.cpu().numpy()

@@ -65,7 +65,10 @@ def test_port_imports_no_jax_or_pctpu():
                    "models/convert.py", "nn/config.py", "nn/train.py",
                    "nn/data.py", "nn/fit.py", "entry.py",
                    "ops/pallas_gather.py", "nn/augment.py",
-                   "nn/checkpoint.py", "nn/train_cli.py"):
+                   "nn/checkpoint.py", "nn/train_cli.py",
+                   "parallel/posegraph.py", "pipelines/odometry.py",
+                   "pipelines/registration_driver.py",
+                   "register/template_api.py"):
         assert f"pctpu_torch/{module}" in names, module
     bad = [(str(f.relative_to(REPO)), mod) for f in files
            for mod in _imports(f) if mod.split(".")[0] in FORBIDDEN]
@@ -75,8 +78,10 @@ def test_port_imports_no_jax_or_pctpu():
 def test_entry_points_raise_without_cuda(monkeypatch):
     """No silent CPU fallback: without a card and without device='cpu'
     an entry point raises."""
+    from pctpu_torch.parallel import posegraph
     from pctpu_torch.parallel.pair_sweep import batched_icp_mega
-    from pctpu_torch.register import icp
+    from pctpu_torch.pipelines import odometry, registration_driver
+    from pctpu_torch.register import icp, template_api
     from pctpu_torch.register.pipeline import register_pair, register_pairs
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     pts = np.zeros((5, 3), np.float32)
@@ -96,6 +101,22 @@ def test_entry_points_raise_without_cuda(monkeypatch):
             loop(cloud.points, m, cloud.points, m)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         batched_icp_mega(batch.points, batch.mask, batch.points, batch.mask)
+    p = cloud.points
+    for loop in (icp.icp_fixed_iters_p2pl, icp.icp_point_to_plane):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            loop(p, m, p, p, m)
+    poses = torch.eye(4).expand(2, 4, 4)
+    for solver in (posegraph.optimize_pose_graph,
+                   posegraph.optimize_pose_graph_sparse,
+                   posegraph.optimize_pose_graph_sparse_f64):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            solver(poses, [0], [1], poses[:1])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        odometry.run_odometry([pts, pts])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        registration_driver.run_registration_dataset("d", "p", "o")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        template_api.find_associations(pts.T, pts.T)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tdevice.resolve_device("cuda")
     assert tdevice.resolve_device("cpu").type == "cpu"

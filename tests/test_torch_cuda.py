@@ -429,3 +429,149 @@ def test_ball_group_backward_kernel_matches_plain(gen, cuda):
         ct.reshape(b, m * k, c), idx.reshape(b, m * k), n)
     assert torch.equal(p.grad, plain)
     assert torch.equal(centers.grad, -ct[..., :3].sum(dim=2))
+
+
+def _moments_case(gen, dev, banded, b=2, n=3000, q_tile=256, db_tile=512):
+    """Kernel 9's operands on x-sorted tilted planes of n points (not a
+    multiple of db_tile); batch 0's second query tile has no valid
+    point."""
+    g = gen.uniform(-20, 20, (b, n, 2))
+    pts = np.concatenate([g, 0.05 * g[..., :1] + 0.1 * g[..., 1:] + gen.normal(
+        scale=0.01, size=(b, n, 1))], axis=-1).astype(np.float32)
+    pts = np.take_along_axis(pts, np.argsort(pts[..., :1], axis=1), axis=1)
+    mask = gen.uniform(size=(b, n)) > 0.1
+    mask[0, q_tile:2 * q_tile] = False
+    np_ = -(-n // max(q_tile, db_tile)) * max(q_tile, db_tile)
+    amat, dbmat, cent, valid = pallas_fpfh._moments_inputs(
+        _t(pts, dev), _t(mask, dev), np_, q_tile)
+    base, nt = pallas_fpfh._band(amat[..., 0], valid, 3.0, q_tile, db_tile,
+                                 banded, 0.0)
+    return (amat, dbmat, cent, base, nt, q_tile, db_tile, 9.0), pts, mask
+
+
+@pytest.mark.parametrize("banded", [False, True])
+def test_moments_kernel_matches_plain(gen, cuda, banded):
+    """Kernel 9: every moment within one f32 ulp of the plain version
+    (both sum in f64 and round once); a tile with no valid point writes
+    zeros when banded (nt = 0)."""
+    args, _, _ = _moments_case(gen, cuda, banded)
+    before = pallas_fpfh.moments.launches
+    k = pallas_fpfh.moments(*args)
+    torch.cuda.synchronize()
+    assert pallas_fpfh.moments.launches == before + 1
+    p = pallas_fpfh.moments_plain(*args)
+    inf = torch.tensor(float("inf"), device=cuda)
+    assert bool(((k >= torch.nextafter(p, -inf))
+                 & (k <= torch.nextafter(p, inf))).all())
+    if banded:
+        assert int(args[4][0, 1]) == 0 and not bool(k[0, 256:512].any())
+
+
+def test_normals_radius_fused_kernel_on_a_plane(gen, cuda):
+    """Kernel 9 through `normals_radius_fused`: the tilted plane's
+    analytic normal (|dot| > 0.99), banded and unbanded alike."""
+    _, pts, mask = _moments_case(gen, cuda, False)
+    true_n = np.array([-0.05, -0.1, 1.0]) / np.linalg.norm([-0.05, -0.1, 1])
+    for banded in (False, True):
+        nrm = pallas_fpfh.normals_radius_fused(
+            _t(pts, cuda), _t(mask, cuda), radius=3.0, x_banded=banded)
+        dots = np.abs(nrm.cpu().numpy() @ true_n)[mask]
+        assert dots.min() > 0.99, (banded, dots.min())
+
+
+def test_moments_kernel_needs_its_tiles(gen, cuda):
+    args, _, _ = _moments_case(gen, cuda, False)
+    with pytest.raises(ValueError, match="db_tile"):
+        pallas_fpfh.moments(*args[:6], 192, args[7])
+
+
+def test_icp_fixed_iters_p2pl_card_matches_cpu(gen, cuda):
+    """Point-to-plane ICP, 3 pairs in lockstep on the card (K1, cuSOLVER's
+    6x6 solves) and on the CPU (plain K1, LAPACK): T within 1e-4."""
+    b, n = 3, 2000
+    g = gen.uniform(-20, 20, (b, n, 2))
+    dst = np.concatenate([g, np.sin(0.3 * g[..., :1])
+                          + np.cos(0.25 * g[..., 1:])], axis=-1).astype(
+                              np.float32)
+    nrm = np.stack([-0.3 * np.cos(0.3 * g[..., 0]),
+                    0.25 * np.sin(0.25 * g[..., 1]), np.ones_like(g[..., 0])],
+                   axis=-1)
+    nrm = (nrm / np.linalg.norm(nrm, axis=-1, keepdims=True)).astype(
+        np.float32)
+    src = (dst - np.array([0.3, -0.2, 0.05])).astype(np.float32)
+    mask = gen.uniform(size=(b, n)) > 0.05
+    args = [_t(x, cuda) for x in (src, mask, dst, nrm, mask)]
+    before = pallas_nn.nn1.launches
+    kern = icp.icp_fixed_iters_p2pl(*args, iters=8, dist_thresh=2.0)
+    torch.cuda.synchronize()
+    assert pallas_nn.nn1.launches == before + 8
+    plain = icp.icp_fixed_iters_p2pl(*[a.cpu() for a in args], iters=8,
+                                     dist_thresh=2.0, device="cpu")
+    torch.testing.assert_close(kern.cpu(), plain, rtol=0, atol=1e-4)
+
+
+def test_icp_fixed_iters_p2pl_card_vs_cpu_on_a_plane(gen, cuda):
+    """On a tilted plane point-to-plane ICP fixes 3 of the 6 degrees of
+    freedom. The damped 6x6 (+1e-6 I, as in the reference) turns rounding
+    noise along the other 3 into steps, so card and CPU drift apart along
+    the plane; the drift is printed. What the plane fixes agrees: both
+    poses carry the source onto the target plane (normal within 1e-4,
+    every point within 1e-3 m of it)."""
+    b, n = 3, 2000
+    normal = np.array([-0.05, -0.1, 1.0]) / np.linalg.norm([-0.05, -0.1, 1])
+
+    def plane(size):
+        g = gen.uniform(-20, 20, size + (2,))
+        return np.concatenate([g, 0.05 * g[..., :1] + 0.1 * g[..., 1:]],
+                              axis=-1).astype(np.float32)
+    dst = plane((b, n))
+    src = (plane((b, n)) - np.array([0.3, -0.2, 0.05])).astype(np.float32)
+    nrm = np.broadcast_to(normal, (b, n, 3)).astype(np.float32)
+    mask = gen.uniform(size=(b, n)) > 0.05
+    args = [_t(x, cuda) for x in (src, mask, dst, nrm, mask)]
+    kern = icp.icp_fixed_iters_p2pl(*args, iters=8, dist_thresh=2.0).cpu()
+    plain = icp.icp_fixed_iters_p2pl(*[a.cpu() for a in args], iters=8,
+                                     dist_thresh=2.0, device="cpu")
+    for T in (kern, plain):
+        T = T.double().numpy()
+        assert np.isfinite(T).all()
+        assert np.abs(T[:, :3, :3] @ normal - normal).max() < 1e-4
+        moved = np.einsum("bij,bnj->bni", T[:, :3, :3], src) + T[:, None, :3, 3]
+        assert np.abs(moved @ normal)[mask].max() < 1e-3
+    drift = (kern - plain)[:, :3, 3].norm(dim=-1)
+    print(f"p2pl on a plane, card vs CPU: translation drift per pair (m) "
+          f"{drift.tolist()}, max |dR| "
+          f"{float((kern - plain)[:, :3, :3].abs().max()):.2e}")
+
+
+def test_pose_graph_card_matches_cpu(gen, cuda):
+    """The dense and sparse Gauss-Newton solves (torch.func Jacobians,
+    cuSOLVER) on the card against the CPU on a noisy 12-pose loop."""
+    from scipy.spatial.transform import Rotation
+
+    from pctpu_torch.parallel import posegraph
+    m = 12
+    steps = np.tile(np.eye(4, dtype=np.float32), (m, 1, 1))
+    steps[:, :3, :3] = Rotation.from_rotvec(
+        gen.normal(scale=0.3, size=(m, 3))).as_matrix()
+    steps[:, :3, 3] = gen.normal(size=(m, 3))
+    gt = [np.eye(4)]
+    for k in range(1, m):
+        gt.append(gt[-1] @ steps[k])
+    gt = np.stack(gt).astype(np.float32)
+    ei = np.array(list(range(m - 1)) + [m - 1, 0])
+    ej = np.array(list(range(1, m)) + [0, m // 2])
+    Tm = np.stack([np.linalg.inv(gt[i]) @ gt[j] for i, j in zip(ei, ej)])
+    Tm[:, :3, 3] += gen.normal(scale=0.1, size=(len(ei), 3))
+    init = [np.eye(4)]
+    for k in range(m - 1):
+        init.append(init[-1] @ Tm[k])
+    init = np.stack(init).astype(np.float32)
+    for fn in (posegraph.optimize_pose_graph,
+               posegraph.optimize_pose_graph_sparse):
+        kw = dict(iters=4, robust_delta=0.5, robust_warmup=3)
+        card = fn(_t(init, cuda), ei, ej, Tm.astype(np.float32), **kw)
+        cpu = fn(torch.from_numpy(init), ei, ej, Tm.astype(np.float32),
+                 device="cpu", **kw)
+        torch.testing.assert_close(card.poses.cpu(), cpu.poses, rtol=0,
+                                   atol=1e-3)
