@@ -83,7 +83,10 @@ Phases:
      first and last launch of each input shape and a few between);
      and each ICP path run once more with its kernels swapped for their
      plain versions: the poses agree within 1e-4 (the classifiers' logits
-     within 1e-5);
+     within 1e-5); every recorded K4 / kernel-5 launch timed alone beside
+     its bound, the CTAs it launched (P1-P3: at least one per SM) and the
+     one-CTA-per-pair design's time, and that kernel's fixed cost per
+     iteration;
   4. one JSON line of per-kernel numbers, the card's line, and last the
      line {"ok": true, "device": {...}}.
 
@@ -123,6 +126,15 @@ KERNELS = ("nn1", "spfh", "wsum", "icp_mega_batch", "icp_mega",
            "nearest_banded", "icp_moments_banded", "icp_moments_banded_v2",
            "moments", "fps_pallas", "fps_pallas_batched", "ball_group",
            "gather_rows", "scatter_add_rows")
+# K4 / kernel 5: ms of each path's recorded launches in the kernel's first
+# design, one CTA per pair (PERF.md §6; H100 80GB HBM3, 700 W), None where
+# that design was not timed on the path; and the paths whose every launch
+# must put at least one CTA on each SM
+MEGA_ONE_CTA_MS = {"P1 register_pairs": 29.39, "P2 workload 1": 305.1,
+               "P3 workload 4": 4764.0, "P4 workload 2": None,
+               "P6 register_pair": 304.4, "P13 SLAM": 27.1,
+               "P14 figure-eight": None, "P15 driver": None}
+MEGA_SPREAD = ("P1 register_pairs", "P2 workload 1", "P3 workload 4")
 CLS_REQUESTS, CLS_BATCH, CLS_POINTS = 4, 32, 4096   # MODELNET40_CLS_*
 ENTRY_FPS_M = 512                   # SA1 of the entry forward
 TRAIN_STEPS = 5                     # timed train steps, after 1 warm-up
@@ -659,6 +671,76 @@ def time_mega(m, calls):
     return dict(ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
                 per_launch_ms=[cuda_ms(lambda a=a: m._launch_icp_mega(*a),
                                        reps=2) for a in calls])
+
+
+def mega_launch_table(m, path_calls):
+    """Every recorded K4 / kernel-5 launch of each path, timed alone
+    (CUDA events), beside its bound (`mega_work`), the CTAs it launched
+    and the card's SMs (`launch_plan`), and the one-CTA-per-pair design's
+    time of the path (MEGA_ONE_CTA_MS). On the MEGA_SPREAD paths every
+    launch must put a CTA on each SM."""
+    table = {}
+    for path, calls in path_calls.items():
+        rows_ = []
+        for a in calls:
+            plan = m.launch_plan(a)
+            ops, byt = mega_work(a)
+            bms, by = bound(byt, ops)
+            rows_.append(dict(
+                ms=cuda_ms(lambda a=a: m._launch_icp_mega(*a), reps=3),
+                bound_ms=bms, bound_by=by, ctas=plan["grid"],
+                sms=plan["sms"], lanes=plan["lanes"], units=plan["units"],
+                pairs=int(a[3].shape[0]), queries=int(a[3].shape[2]),
+                window=a[8] * a[9], query_tile=a[10], iters=a[6]))
+            if path in MEGA_SPREAD:
+                need(plan["grid"] >= plan["sms"], path, "CTAs", plan)
+        table[path] = dict(launches=rows_, ms=sum(r["ms"] for r in rows_),
+                           bound_ms=sum(r["bound_ms"] for r in rows_),
+                           one_cta_ms=MEGA_ONE_CTA_MS[path])
+        old = MEGA_ONE_CTA_MS[path]
+        print(f"   {path}: {len(rows_)} launch(es) "
+              + " + ".join(f"{r['ms']:.3f}" for r in rows_)
+              + f" = {table[path]['ms']:.3f} ms (bound "
+              + " + ".join(f"{r['bound_ms']:.4f}" for r in rows_)
+              + f" ms, {rows_[0]['bound_by']}); CTAs "
+              + ", ".join(f"{r['ctas']}" for r in rows_)
+              + f" on {rows_[0]['sms']} SMs (lanes "
+              + ", ".join(f"{r['lanes']}" for r in rows_) + "; pairs x "
+              "queries x window x iters "
+              + ", ".join(f"{r['pairs']}x{r['queries']}x{r['window']}x"
+                          f"{r['iters']}" for r in rows_)
+              + "); one CTA per pair: "
+              + (f"{old} ms" if old else "not timed"))
+    return table
+
+
+def mega_fixed_cost(m, args):
+    """ms per iteration that does not grow with the window, at the grid of
+    the launch `args`: the same launch over a db of one 16-point block,
+    101 iterations against 1 (the grid barrier, the last unit's reduction
+    and solve, a unit's load latency)."""
+    a = list(args)
+    a[0], a[8], a[9] = args[0][:, :, :16].contiguous(), 16, 1
+    t = []
+    for iters in (1, 101):
+        a[6] = iters
+        t.append(cuda_ms(lambda: m._launch_icp_mega(*a), reps=5))
+    return (t[1] - t[0]) / 100, m.launch_plan(a)["grid"]
+
+
+def index_add_ms(calls, torch):
+    """`index_add_` (one call into a zeroed [B*n, C]) on the inputs of
+    each recorded kernel-14 launch (grads [B,M,C], idx [B,M], n)."""
+    out = []
+    for g_, i_, n_ in calls:
+        dev = g_.device
+        fi = (i_.long() + n_ * torch.arange(g_.shape[0], device=dev)[:, None]
+              ).reshape(-1)
+        gf = g_.reshape(-1, g_.shape[2])
+        rn = g_.shape[0] * n_
+        out.append(cuda_ms(lambda fi=fi, gf=gf, rn=rn: torch.zeros(
+            (rn, gf.shape[1]), device=dev).index_add_(0, fi, gf), reps=5))
+    return out
 
 
 def check_banded(b, calls, torch):
@@ -1578,6 +1660,20 @@ def main(argv=None):
         "group_points_pallas": [cuda_ms(lambda a=a: pallas_gather.
                                         _launch_scatter_add_rows(*a), reps=5)
                                 for a in r14.calls]}
+    rows["scatter_add_rows"]["library_per_launch_ms"] = {
+        "train_cls_ssg": index_add_ms(r_sc["train_cls_ssg"], torch),
+        "group_points_pallas": index_add_ms(r14.calls, torch)}
+    print("   kernel 14 vs index_add_ (ms): P11 "
+          + ", ".join(f"{k:.3f} vs {lb:.3f}" for k, lb in zip(
+              rows["scatter_add_rows"]["per_launch_ms"]["train_cls_ssg"],
+              rows["scatter_add_rows"]["library_per_launch_ms"][
+                  "train_cls_ssg"]))
+          + "; kernels-13/14 phase " + ", ".join(
+              f"{k:.3f} vs {lb:.3f}" for k, lb in zip(
+                  rows["scatter_add_rows"]["per_launch_ms"][
+                      "group_points_pallas"],
+                  rows["scatter_add_rows"]["library_per_launch_ms"][
+                      "group_points_pallas"])))
     rows["gather_rows"]["per_launch_ms"] = [
         cuda_ms(lambda a=a: pallas_gather._launch_gather_rows(*a), reps=5)
         for a in r13.calls]
@@ -1708,6 +1804,14 @@ def main(argv=None):
     k14 = check_path_kernels(mods, rec14, torch)
     need(max(k14["nn1"]["batch_sizes"]) > 1 and "icp_mega_batch" in k14,
          "figure-eight: no closure batch among the checked launches", k14)
+    # K1's time over all of P14's launches, replayed back to back
+    k14["nn1"]["total_ms"] = cuda_ms(
+        lambda: [pallas_nn.nn1(*a) for a in rec14["nn1"].calls], reps=1)
+    k14["nn1"]["total_bound_ms"] = bound(
+        sum(nbytes(q, db, pen) + q.shape[0] * q.shape[1] * 8
+            for q, db, pen in rec14["nn1"].calls),
+        sum(8.0 * q.shape[0] * q.shape[1] * db.shape[1]
+            for q, db, _ in rec14["nn1"].calls))[0]
     metrics["slam_figure_eight"] = dict(
         frames=128, seconds=p14_s, keyframes=len(out14["keyframes"]),
         closures=len(cl14), max_closure_gap=max(b - a for a, b in cl14),
@@ -1727,6 +1831,9 @@ def main(argv=None):
           f"{m14['sparse_f64_ms']:.0f} ms); split (s) "
           + ", ".join(f"{k} {v:.3f}" for k, v in split14.items()))
     print(kernels_line("P14", k14))
+    print(f"   P14 K1: {len(rec14['nn1'].calls)} launches in "
+          f"{k14['nn1']['total_ms']:.2f} ms (bound "
+          f"{k14['nn1']['total_bound_ms']:.3f} ms)")
 
     # ---- P15 the registration-dataset driver on P1's pairs -----------------
     reg_dir = ROOT / "build" / "chip_smoke_reg"
@@ -1775,6 +1882,22 @@ def main(argv=None):
         rows[name]["max_abs_err"] = max(
             [rows[name]["max_abs_err"]]
             + [k[name]["max_abs_err"] for k in (k13, k14, k15) if name in k])
+
+    # ---- K4 / kernel 5: every recorded launch of every path ----------------
+    print("K4 / kernel 5, each recorded launch timed alone:")
+    metrics["icp_mega_launches"] = mega_launch_table(mega, {
+        "P1 register_pairs": r_k4.calls, "P2 workload 1": r_k5.calls,
+        "P3 workload 4": r_k5w4.calls, "P4 workload 2": r_k4w2.calls,
+        "P6 register_pair": r_k5p6.calls, "P13 SLAM": rec13["icp_mega"].calls,
+        "P14 figure-eight": rec14["icp_mega"].calls,
+        "P15 driver": rec15["icp_mega"].calls})
+    fixed = {}
+    for name, calls in (("P2 workload 1", r_k5.calls),
+                        ("P1 register_pairs", r_k4.calls)):
+        fixed[name] = mega_fixed_cost(mega, calls[0])
+        print(f"   fixed cost per iteration at {name}'s first launch "
+              f"({fixed[name][1]} CTAs): {fixed[name][0] * 1e3:.2f} us")
+    metrics["icp_mega_fixed_ms_per_iter"] = fixed
 
     # ---- kernel 9: normals_radius_fused on P13's frames and P1's clouds -----
     vox = [voxel.voxel_downsample_capped(pc.points, pc.mask, cfg.voxel_size,

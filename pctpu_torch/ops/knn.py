@@ -32,13 +32,23 @@ class NeighborSet(NamedTuple):
     count: torch.Tensor
 
 
+def _smallest(d2: torch.Tensor, k: int):
+    """The k smallest entries of each row, ascending, the lowest index
+    first among equal values (as `lax.top_k` of the negated row): a
+    stable sort cut to k. `torch.topk` leaves the order of ties open."""
+    if k > d2.shape[1]:
+        raise ValueError(f"k={k} exceeds the db size {d2.shape[1]}")
+    d, i = torch.sort(d2, dim=1, stable=True)
+    return d[:, :k], i[:, :k]
+
+
 def knn(query: torch.Tensor, db: torch.Tensor, k: int,
         db_mask: Optional[torch.Tensor] = None,
         query_chunk: int = 1024) -> NeighborSet:
     """Exact k nearest neighbours: query [M,3], db [N,3] -> NeighborSet
-    with K = k, sorted by distance ascending. For k <= 4, k passes of
-    argmin + mask (ties to the lowest index, as the reference); else
-    `torch.topk`."""
+    with K = k, sorted by distance ascending, ties to the lowest index
+    (the order of the reference's `lax.top_k`). For k <= 4, k passes of
+    argmin + mask; else a stable sort, cut to k."""
     ds, is_ = [], []
     for s in range(0, query.shape[0], query_chunk):
         d2 = pairwise_sqdist(query[s:s + query_chunk], db, db_mask)
@@ -53,8 +63,8 @@ def knn(query: torch.Tensor, db: torch.Tensor, k: int,
             ds.append(torch.stack(dk, dim=1))
             is_.append(torch.stack(ik, dim=1))
         else:
-            neg, i = torch.topk(-d2, k, dim=1)
-            ds.append(-neg)
+            d, i = _smallest(d2, k)
+            ds.append(d)
             is_.append(i)
     d2 = torch.cat(ds)
     idx = torch.cat(is_).int()
@@ -66,15 +76,16 @@ def radius_search(query: torch.Tensor, db: torch.Tensor, radius: float,
                   k_cap: int, db_mask: Optional[torch.Tensor] = None,
                   query_chunk: int = 1024) -> NeighborSet:
     """All neighbours within `radius`, capped at the closest k_cap per
-    query, plus the uncapped count as overflow telemetry."""
+    query (ties to the lowest index), plus the uncapped count as overflow
+    telemetry."""
     r2 = f32_square(radius)
     ds, is_, cs = [], [], []
     for s in range(0, query.shape[0], query_chunk):
         d2 = pairwise_sqdist(query[s:s + query_chunk], db, db_mask)
         within = d2 <= r2
         cs.append(within.sum(dim=1, dtype=torch.int32))
-        neg, i = torch.topk(-torch.where(within, d2, BIG), k_cap, dim=1)
-        ds.append(-neg)
+        d, i = _smallest(torch.where(within, d2, BIG), k_cap)
+        ds.append(d)
         is_.append(i)
     d2 = torch.cat(ds)
     return NeighborSet(torch.cat(is_).int(), d2, d2 < BIG, torch.cat(cs))

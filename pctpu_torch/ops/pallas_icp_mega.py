@@ -2,12 +2,14 @@
 `pctpu/ops/pallas_icp_mega.py`). Two TPU kernels share one body there,
 `_mega_body`, and so do their ports: `csrc/icp_mega.cu` serves both.
 
-  K4 `icp_mega_batch`: a batch of pairs (`_icp_mega_kernel_batch`),
-     one CTA per pair;
+  K4 `icp_mega_batch`: a batch of pairs (`_icp_mega_kernel_batch`);
   kernel 5 `icp_mega`: one pair (`_icp_mega_kernel`), the same CUDA entry
      launched with B = 1.
 
-Each wrapper counts its own launches.
+Each wrapper counts its own launches. One launch is one persistent
+cooperative grid over the whole card: `unit_plan` cuts every pair's query
+tiles into units that the CTAs share, and a pair's next iteration waits
+for the pose its last unit solves (the design is in the source's note).
 
 Each iteration, for each query tile: transform the tile by the current
 pose, pick the db window from the LUT (the tile's transformed centre),
@@ -24,6 +26,8 @@ tensors, including the same scalar-form Procrustes (not `register.procrustes`'s
 matrix form), so kernel and plain agree tightly.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -238,24 +242,111 @@ def icp_mega_plain(dbt5, lut, scal, src3, spen, centers, iters: int,
 # the wrappers
 # ---------------------------------------------------------------------------
 
+# the kernel's CTA shape (csrc/icp_mega.cu kThreads, kQ): a unit holds
+# THREADS * QUERIES_PER_THREAD / lanes queries
+THREADS, QUERIES_PER_THREAD, MAX_LANES = 256, 2, 32
+# the least units a launch aims for, per SM: on an H100 (4 CTAs per SM)
+# `tools/icp_mega_sweep.py` found the fastest lanes at 3.6-3.9 units per
+# SM on five of the paths' six shapes
+UNITS_PER_SM = 3
+
+_capacity: dict = {}
+
+
+def card_capacity(device: torch.device) -> tuple:
+    """(SMs, CTAs of the kernel the card holds at once) of a CUDA device:
+    the largest grid a cooperative launch of it takes."""
+    idx = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if idx not in _capacity:
+        fn = kernels.library("icp_mega.cu").pct_icp_mega_capacity
+        fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        fn.restype = ctypes.c_int
+        ctas = ctypes.c_int(0)
+        with torch.cuda.device(idx):
+            kernels.check(fn(idx, ctypes.byref(ctas)), "icp_mega capacity")
+        sms = torch.cuda.get_device_properties(idx).multi_processor_count
+        _capacity[idx] = (sms, ctas.value)
+    return _capacity[idx]
+
+
+def unit_plan(bsz: int, mp: int, query_tile: int, sms: int,
+              ctas: int) -> dict:
+    """How one launch spreads `bsz` pairs of `mp` queries (tiles of
+    `query_tile`) over a card of `sms` SMs that holds `ctas` CTAs at once.
+
+    `lanes` (a power of two up to 32) lanes share a query, so a unit holds
+    `slice` = THREADS * QUERIES_PER_THREAD / lanes queries of one tile.
+    `lanes` is first raised until `slice` divides the tile (no dead query
+    slots), then until there are UNITS_PER_SM units per SM. A tile is
+    `slices` units, a pair `units_per_pair`; the grid is the units or the
+    card's CTAs, whichever is fewer."""
+    slots = THREADS * QUERIES_PER_THREAD
+    ntiles = mp // query_tile
+    lanes = 1
+    while lanes < MAX_LANES and query_tile % (slots // lanes):
+        lanes *= 2
+
+    def units(ln):
+        return bsz * ntiles * -(-query_tile // (slots // ln))
+    while lanes < MAX_LANES and units(lanes) < UNITS_PER_SM * sms:
+        lanes *= 2
+    slc = slots // lanes
+    spt = -(-query_tile // slc)
+    return dict(lanes=lanes, slice=slc, slices=spt,
+                units_per_pair=ntiles * spt, units=units(lanes),
+                grid=min(units(lanes), ctas), sms=sms)
+
+
+def unit_queries(plan: dict, query_tile: int, unit: int) -> list:
+    """The query columns (of its pair) that unit `unit` of a pair holds,
+    in the kernel's thread order: slice q0 of tile t, query
+    q0 + s * (THREADS / lanes) + group for s < QUERIES_PER_THREAD, where
+    it lies in the tile."""
+    groups = THREADS // plan["lanes"]
+    tile, sl = divmod(unit, plan["slices"])
+    q0 = sl * plan["slice"]
+    return [tile * query_tile + q0 + s * groups + g
+            for s in range(QUERIES_PER_THREAD) for g in range(groups)
+            if q0 + s * groups + g < query_tile]
+
+
+def launch_plan(args) -> dict:
+    """`unit_plan` of one launch, from the argument tuple of
+    `icp_mega_plain` / `_launch_icp_mega` on a CUDA device."""
+    dbt5, src3, tq = args[0], args[3], args[10]
+    sms, ctas = card_capacity(dbt5.device)
+    return unit_plan(src3.shape[0], src3.shape[2], tq, sms, ctas)
+
+
 def _launch_icp_mega(dbt5, lut, scal, src3, spen, centers, iters: int,
                      thresh2: float, block: int, wb: int, query_tile: int,
                      newton_iters: int = 6) -> torch.Tensor:
     """Launch `csrc/icp_mega.cu` on CUDA tensors (the layouts of
-    `icp_mega_plain`) -> pose [B,12]; one CTA per pair."""
+    `icp_mega_plain`) -> pose [B,12]: one cooperative launch of
+    `launch_plan`'s grid; raises if the card refuses it."""
     b, _, np_ = dbt5.shape
     mp = src3.shape[2]
     f32, i32 = torch.float32, torch.int32
     kernels.require_cuda("icp_mega", dbt5, src3, spen, lut, centers, scal,
                          dtypes=(f32, f32, f32, i32, f32, f32))
-    out = torch.empty((b, 16), dtype=f32, device=dbt5.device)
-    fn = kernels.entry("icp_mega.cu", "pct_icp_mega", n_ptr=7, n_int=9,
+    dev = dbt5.device
+    plan = unit_plan(b, mp, query_tile, *card_capacity(dev))
+    out = torch.empty((b, 16), dtype=f32, device=dev)
+    part = torch.empty((b, plan["units_per_pair"], 16), dtype=torch.float64,
+                       device=dev)
+    poses = torch.empty((b, 12), dtype=f32, device=dev)
+    cnt = torch.empty((2, b), dtype=i32, device=dev)    # counts, versions
+    fn = kernels.entry("icp_mega.cu", "pct_icp_mega", n_ptr=11, n_int=11,
                        n_float=1)
     kernels.check(fn(dbt5.data_ptr(), src3.data_ptr(), spen.data_ptr(),
                      lut.data_ptr(), centers.data_ptr(), scal.data_ptr(),
-                     out.data_ptr(), b, np_, mp, block, wb, query_tile,
-                     iters, newton_iters, LUT_BINS + 1, thresh2,
-                     kernels.stream_ptr(dbt5.device)), "icp_mega")
+                     out.data_ptr(), part.data_ptr(), poses.data_ptr(),
+                     cnt[0].data_ptr(), cnt[1].data_ptr(), b, np_, mp,
+                     block, wb, query_tile, iters, newton_iters,
+                     LUT_BINS + 1, plan["lanes"], plan["grid"], thresh2,
+                     kernels.stream_ptr(dev)),
+                  "icp_mega")
     return out[:, :12]
 
 
@@ -327,7 +418,7 @@ def icp_mega(bdb, src3: torch.Tensor, spen: torch.Tensor,
     (pre-transform, padded to a query_tile multiple); spen [1,Mp] 0 valid
     / BIG pad; centers [1,3*ntiles] per-tile centre source coords. CPU
     tensors take the plain version; CUDA tensors launch the kernel (one
-    CTA) or raise."""
+    persistent grid) or raise."""
     args = _single_args(bdb, src3, spen, centers, init_T, iters,
                         dist_thresh, block, window_blocks, query_tile,
                         newton_iters)
@@ -356,8 +447,8 @@ def icp_mega_batch(dbt5: torch.Tensor, lut: torch.Tensor,
     packed db (x, y, z, pen2, ones), lut [B,1,LUT_BINS+1], lo/hi [B]
     band-axis range, axis [B] sort axis, src3 [B,3,Mp], spen [B,1,Mp],
     centers [B,1,3*ntiles], init_T [B,4,4]. Returns [B,4,4]. CPU tensors
-    take the plain version; CUDA tensors launch the kernel (one CTA per
-    pair) or raise."""
+    take the plain version; CUDA tensors launch the kernel (one
+    persistent grid over all pairs) or raise."""
     args = _mega_args(dbt5, lut, lo, hi, axis, src3, spen, centers,
                       init_T.float(), iters, dist_thresh, block,
                       window_blocks, query_tile, newton_iters)

@@ -163,6 +163,100 @@ def test_icp_mega_single_kernel_matches_plain(gen, cuda, window_blocks):
     torch.testing.assert_close(kern.cpu(), plain, rtol=0, atol=1e-4)
 
 
+def _mega_case(gen, dev, b, n, block, window_blocks, query_tile, iters=4,
+               dup=1, dist_thresh=5.0, offset=(0.2, -0.1, 0.05)):
+    """The argument tuple of `_launch_icp_mega` / `icp_mega_plain` for `b`
+    pairs of `n` source points; `dup` > 1 repeats every db point `dup`
+    times (exact ties, side by side in the banded order, so they fall
+    within a block, across the lanes that share a query and, at a block's
+    edge, across blocks)."""
+    src = gen.uniform(-20, 20, (b, n, 3)).astype(np.float32)
+    src[..., 0] *= 3.0
+    ang = gen.normal(scale=0.02, size=(b, 3))
+    R = np.stack([np.array([[1, -a[2], a[1]], [a[2], 1, -a[0]],
+                            [-a[1], a[0], 1]]) for a in ang])
+    dst = (np.einsum("bij,bnj->bni", R, src) + offset).astype(np.float32)
+    dst = np.repeat(dst[:, :n // dup], dup, axis=1)
+    mask = _t(np.ones((b, n), bool), dev)
+    T0 = torch.eye(4, device=dev).repeat(b, 1, 1)
+    bdb, src3, spen, centers = icp._mega_layout(
+        _t(src, dev), mask, _t(dst, dev), mask, T0, block, query_tile)
+    return pallas_icp_mega._mega_args(
+        pallas_icp_mega.pack_dbt5(bdb), bdb.lut[:, None, :], bdb.lo, bdb.hi,
+        bdb.axis, src3, spen, centers, T0, iters, dist_thresh, block,
+        window_blocks, query_tile, 6)
+
+
+@pytest.mark.parametrize("b,n,block,wb,tq", [
+    (1, 16384, 1024, 1, 1024),     # workload 1's tiles: 16 of 1,024
+    (1, 16384, 1024, 1, 512),      # 32 tiles of 512
+    (1, 8192, 512, 2, 1024),       # a LUT window of 2 blocks
+    (1, 8192, 1024, 8, 512),       # the window spans the whole db
+    (16, 2048, 512, 1, 512),       # B = 16, workload 2's tiles
+    (16, 2048, 2048, 1, 2048),     # B = 16, register_pairs' voxel stage
+    (3, 1024, 256, 4, 128),        # small tiles: 32 lanes per query
+])
+def test_icp_mega_grid_matches_plain(gen, cuda, b, n, block, wb, tq):
+    """The persistent grid (K4, kernel 5 at B = 1) against
+    `icp_mega_plain` on the same CUDA inputs: the pose within 1e-4; the
+    launch spreads over at least one CTA per SM where the shape has the
+    units."""
+    args = _mega_case(gen, cuda, b, n, block, wb, tq)
+    plan = pallas_icp_mega.launch_plan(args)
+    if b * n >= 16384:
+        assert plan["grid"] >= plan["sms"], plan
+    assert plan["slice"] <= tq and tq % plan["slice"] == 0, plan
+    kern = pallas_icp_mega._launch_icp_mega(*args)
+    plain = pallas_icp_mega.icp_mega_plain(*args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(kern, plain, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("lanes_case", [(1, 2048, 512, 1, 512),
+                                        (1, 4096, 1024, 4, 1024)])
+def test_icp_mega_duplicate_db_points_match_plain(gen, cuda, lanes_case):
+    """Every db point four times over: d2 ties inside a block, across the
+    lanes of one query and across block edges; the pose within 1e-4."""
+    args = _mega_case(gen, cuda, *lanes_case, dup=4)
+    assert pallas_icp_mega.launch_plan(args)["lanes"] > 1
+    kern = pallas_icp_mega._launch_icp_mega(*args)
+    plain = pallas_icp_mega.icp_mega_plain(*args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(kern, plain, rtol=0, atol=1e-4)
+
+
+def test_icp_mega_all_gated_out_keeps_the_pose(gen, cuda):
+    """Pairs 500 m apart with a 1 m gate: no correspondence passes, the
+    < 3 guard holds the initial pose (the identity) in every iteration,
+    as in the plain version."""
+    args = _mega_case(gen, cuda, 2, 2048, 512, 1, 512, dist_thresh=1.0,
+                      offset=(500.0, 0.0, 0.0))
+    kern = pallas_icp_mega._launch_icp_mega(*args)
+    plain = pallas_icp_mega.icp_mega_plain(*args)
+    torch.cuda.synchronize()
+    eye = torch.tensor([1.0, 0, 0, 0, 1, 0, 0, 0, 1, 0, 0, 0], device=cuda)
+    torch.testing.assert_close(kern, plain, rtol=0, atol=0)
+    torch.testing.assert_close(kern, eye.expand(2, 12), rtol=0, atol=0)
+
+
+def test_icp_mega_runs_are_bit_identical(gen, cuda):
+    """Two launches on the same inputs give the same bits: the moments
+    are reduced in a fixed order, with no float atomics."""
+    args = _mega_case(gen, cuda, 4, 4096, 512, 2, 512, iters=8)
+    first = pallas_icp_mega._launch_icp_mega(*args)
+    second = pallas_icp_mega._launch_icp_mega(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+def test_icp_mega_zero_iterations_return_the_initial_pose(gen, cuda):
+    args = list(_mega_case(gen, cuda, 2, 1024, 256, 1, 256))
+    args[6] = 0
+    kern = pallas_icp_mega._launch_icp_mega(*args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(kern, args[2][:, :12], rtol=0, atol=0)
+
+
 def _banded_case(gen, dev, n=3000, m=1000, block=256):
     db = gen.uniform(0, 10, (n, 3)).astype(np.float32)
     db[:, 0] *= 10

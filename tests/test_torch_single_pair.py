@@ -69,8 +69,8 @@ def _structured_scene(rng, n=2000):
 
 @pytest.mark.parametrize("k", [3, 8])
 def test_knn_matches_jax(rng, k):
-    """k <= 4 takes the argmin passes, k > 4 `topk`: indices equal (no
-    ties in uniform data); distances within 1e-4, the f32 rounding of the
+    """k <= 4 takes the argmin passes, k > 4 the stable sort: indices
+    equal (no ties in uniform data); distances within 1e-4, the f32 rounding of the
     a^2+b^2-2ab tiles, summed in another order, at |p|^2 ~ 300 m^2 (ulp
     3e-5)."""
     db = rng.uniform(-10, 10, (600, 3)).astype(np.float32)
