@@ -79,8 +79,7 @@ Phases:
   3. on the inputs each path gave its kernels (recorded in a run before
      the counted one, or in the counted run itself), each kernel against
      its plain version with the stated tolerance, timed beside its bound
-     (P13-P15 and the kernel-9 phase: K2-K4 on every launch, K1 on the
-     first and last launch of each input shape and a few between);
+     (P13-P15 and the kernel-9 phase: K1-K4 on every launch);
      and each ICP path run once more with its kernels swapped for their
      plain versions: the poses agree within 1e-4 (the classifiers' logits
      within 1e-5); every recorded K4 / kernel-5 launch timed alone beside
@@ -377,6 +376,30 @@ def cuda_ms(fn, reps=5, warmup=1):
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fns, reps=5):
+    """Milliseconds of one pass over the thunks `fns`, captured into one
+    CUDA graph and replayed `reps` times between CUDA events: the device
+    time of their launches, without the host's time to enqueue them."""
+    import torch
+    for f in fns:                               # warm-up, not captured
+        f()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for f in fns:
+            f()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / reps
+
+
 def bound(nbytes, ops):
     """(least ms the card could take, what bounds it)."""
     t_bytes, t_ops = nbytes / HBM_RATE * 1e3, ops / FP32_PEAK * 1e3
@@ -484,35 +507,33 @@ class Paths:
 # kernel against plain version
 # ---------------------------------------------------------------------------
 
+def nn1_work(q, db, pen):
+    """(ops, bytes) of one K1 launch: 8 flops per (query, db) pair (3 sub,
+    3 mul, 2 add; the penalty add and the compare uncounted); the inputs
+    read once, (d2, idx) written once."""
+    b_, m, _ = q.shape
+    return 8.0 * b_ * m * db.shape[1], nbytes(q, db, pen) + b_ * m * 8
+
+
 def check_nn1(mods, args, torch, timed=True):
-    """K1 vs plain: d2 rtol 1e-6; idx equal unless the two choices are a
-    near-tie (their distances within 1e-5 relative). `timed` adds the
+    """K1 vs plain: d2 and idx exactly equal (the kernel keeps the plain
+    version's rounding order and lowest-index ties). `timed` adds the
     kernel's, the plain version's and the library's times and the bound."""
     nn = mods["pallas_nn"]
     q, db, pen = args
     d2k, ik = nn.nn1(q, db, pen)
     d2p, ip = nn.nearest_plain(q, db, pen)
-    torch.cuda.synchronize()
-    need(torch.allclose(d2k, d2p, rtol=1e-6, atol=0), "nn1 d2")
-    diff = ik != ip
-    if diff.any():
-        def dist(idx):
-            p = torch.gather(db, 1, idx.long()[..., None].expand(-1, -1, 3))
-            return ((q - p) ** 2).sum(-1)
-        a, b = dist(ik)[diff], dist(ip)[diff]
-        need(torch.all((a - b).abs() <= 1e-5 * b.abs()), "nn1 idx")
-    err = float((d2k - d2p).abs().max())
+    need(torch.equal(d2k, d2p) and torch.equal(ik, ip), "nn1 vs plain",
+         tuple(q.shape), tuple(db.shape))
     b_, m, _ = q.shape
-    n = db.shape[1]
-    detail = (f"{b_}x{m} queries vs {n} db, {int(diff.sum())} near-tie idx "
-              "differences")
+    detail = f"{b_}x{m} queries vs {db.shape[1]} db, d2 and idx equal"
     if not timed:
-        return dict(max_abs_err=err, detail=detail)
-    ms = cuda_ms(lambda: nn.nn1(q, db, pen), reps=20)
+        return dict(max_abs_err=0.0, detail=detail)
+    ms = graph_ms([lambda: nn.nn1(q, db, pen)] * 20) / 20
     plain = cuda_ms(lambda: nn.nearest_plain(q, db, pen), reps=3)
     lib = cuda_ms(lambda: torch.cdist(q, db).square().min(dim=2), reps=5)
-    bms, by = bound(nbytes(q, db, pen) + b_ * m * 8, 8.0 * b_ * m * n)
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
+    bms, by = bound(nn1_work(*args)[1], nn1_work(*args)[0])
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=bms,
                 bound_by=by, library_ms=lib, detail=detail)
 
 
@@ -614,29 +635,17 @@ def recording_k1_k4(pallas_nn, pallas_fpfh, mega):
         yield dict(nn1=r_nn, spfh=r_spfh, wsum=r_wsum, icp_mega=r_k4)
 
 
-def nn1_sample(calls, spread=4):
-    """The K1 launches a path's check takes: `spread` of them spread over
-    the run, and the first and last of each input shape (a front-end
-    frame, each closure batch, register_pairs' stats)."""
-    pick = set(range(0, len(calls), max(1, len(calls) // spread)))
-    by_shape = {}
-    for i, (q, db, _) in enumerate(calls):
-        by_shape.setdefault((tuple(q.shape), tuple(db.shape)), []).append(i)
-    for idx in by_shape.values():
-        pick.update((idx[0], idx[-1]))
-    return [calls[i] for i in sorted(pick)]
-
-
 def check_path_kernels(mods, rec, torch):
-    """K1-K4 vs plain on one path's recorded launches, at check_nn1's,
-    check_fpfh's and check_mega's tolerances: K1 on `nn1_sample`, K2-K4
-    on every launch. Returns what was checked and the worst errors."""
-    nn_calls = nn1_sample(rec["nn1"].calls)
+    """K1-K4 vs plain on every launch of one path's run, at check_nn1's,
+    check_fpfh's and check_mega's tolerances. Returns what was checked and
+    the worst errors."""
+    calls = rec["nn1"].calls
+    for a in calls:
+        check_nn1(mods, a, torch, timed=False)
     out = {"nn1": dict(
-        checked=len(nn_calls), launches=len(rec["nn1"].calls),
-        batch_sizes=sorted({int(a[0].shape[0]) for a in nn_calls}),
-        max_abs_err=max(check_nn1(mods, a, torch, timed=False)["max_abs_err"]
-                        for a in nn_calls))}
+        checked=len(calls), launches=len(calls),
+        batch_sizes=sorted({int(a[0].shape[0]) for a in calls}),
+        max_abs_err=0.0)}
     if rec["spfh"].calls:
         fp = check_fpfh(mods, rec["spfh"].calls, rec["wsum"].calls, torch,
                         timed=False)
@@ -741,6 +750,93 @@ def index_add_ms(calls, torch):
         out.append(cuda_ms(lambda fi=fi, gf=gf, rn=rn: torch.zeros(
             (rn, gf.shape[1]), device=dev).index_add_(0, fi, gf), reps=5))
     return out
+
+
+def nn1_table(nn, cases, sms, torch):
+    """K1 at each path's shapes: per launch, its device time (`graph_ms`
+    over the case's recorded launches), its bound (`nn1_work`) and
+    `cdist`^2 + `min` on the same inputs (CUDA events), with the shapes and
+    `nn1_plan`'s grids and db slices."""
+    table = {}
+    for name, calls in cases.items():
+        k = len(calls)
+        ms = graph_ms([lambda a=a: nn.nn1(*a) for a in calls]
+                      * max(1, 20 // k)) / (k * max(1, 20 // k))
+        lib = cuda_ms(lambda: [torch.cdist(q, db).square().min(dim=2)
+                               for q, db, _ in calls], reps=3) / k
+        bms, by = bound(sum(nn1_work(*a)[1] for a in calls),
+                        sum(nn1_work(*a)[0] for a in calls))
+        shapes, plans = {}, {}      # "BxMxN" and "grid x slices": launches
+        for q, db, _ in calls:
+            sh = (int(q.shape[0]), int(q.shape[1]), int(db.shape[1]))
+            key = "x".join(map(str, sh))
+            shapes[key] = shapes.get(key, 0) + 1
+            p = nn.nn1_plan(*sh, sms)
+            key = f"{p['grid']} x {p['slices']}"
+            plans[key] = plans.get(key, 0) + 1
+        table[name] = dict(launches=k, ms=ms, bound_ms=bms / k, bound_by=by,
+                           library_ms=lib, shapes=shapes, plans=plans)
+
+        def top(d):
+            items = sorted(d.items(), key=lambda kv: -kv[1])
+            return ", ".join(f"{key} ({c})" for key, c in items[:3]) + (
+                f" and {len(items) - 3} more" if len(items) > 3 else "")
+        print(f"   K1 {name}: {k} launch(es), {ms * 1e3:.1f} us per launch "
+              f"(bound {bms / k * 1e3:.2f} us, {by}; cdist^2 + min "
+              f"{lib * 1e3:.1f} us); B x M x N {top(shapes)}; grid x slices "
+              f"{top(plans)}")
+    return table
+
+
+def scatter_table(pg, kernels, cases, torch):
+    """Kernel 14 at each recorded shape: the whole launch, its bucket sort
+    (`pct_scatter_sort`) and its row sum (`pct_scatter_sum`) timed apart
+    (CUDA events), beside `index_add_` and the bound (`scatter_work`);
+    each half's result equal to the plain version, and two runs equal."""
+    sort = kernels.entry("gather.cu", "pct_scatter_sort", n_ptr=4, n_int=3)
+    summ = kernels.entry("gather.cu", "pct_scatter_sum", n_ptr=4, n_int=4)
+    table = {}
+    for name, (g, idx, n) in cases.items():
+        b_, m, c = g.shape
+        dev = g.device
+        start = torch.empty((b_, n + 1), dtype=torch.int32, device=dev)
+        order = torch.empty((b_, m), dtype=torch.int32, device=dev)
+        scratch = torch.empty((b_, n + m), dtype=torch.int32, device=dev)
+        out = torch.empty((b_, n, c), dtype=torch.float32, device=dev)
+        st = kernels.stream_ptr(dev)
+
+        def run_sort():
+            kernels.check(sort(idx.data_ptr(), start.data_ptr(),
+                               order.data_ptr(), scratch.data_ptr(), b_, m,
+                               n, st), "scatter sort")
+
+        def run_sum():
+            kernels.check(summ(g.data_ptr(), start.data_ptr(),
+                               order.data_ptr(), out.data_ptr(), b_, m, n, c,
+                               st), "scatter sum")
+        run_sort()
+        run_sum()
+        plain = pg.scatter_add_rows_plain(g, idx, n)
+        need(torch.equal(out, plain), "scatter sort + sum vs plain", name)
+        need(torch.equal(pg._launch_scatter_add_rows(g, idx, n), plain)
+             and torch.equal(pg._launch_scatter_add_rows(g, idx, n), plain),
+             "scatter_add_rows: two runs vs plain", name)
+        ops, byt = scatter_work((g, idx, n))
+        bms, by = bound(byt, ops)
+        row = dict(
+            shape=dict(B=b_, M=m, C=c, n=n),
+            ms=cuda_ms(lambda: pg._launch_scatter_add_rows(g, idx, n),
+                       reps=10),
+            sort_ms=cuda_ms(run_sort, reps=10),
+            sum_ms=cuda_ms(run_sum, reps=10),
+            library_ms=index_add_ms([(g, idx, n)], torch)[0],
+            bound_ms=bms, bound_by=by)
+        table[name] = row
+        print(f"   kernel 14 {name} (B {b_}, M {m}, C {c}, n {n}): "
+              f"{row['ms']:.3f} ms = sort {row['sort_ms']:.3f} + sum "
+              f"{row['sum_ms']:.3f} ms; index_add_ {row['library_ms']:.3f} "
+              f"ms; bound {bms:.4f} ms ({by})")
+    return table
 
 
 def check_banded(b, calls, torch):
@@ -1653,27 +1749,12 @@ def main(argv=None):
     rows["scatter_add_rows"]["library_ms"] = cuda_ms(lambda: [
         torch.zeros((rn, g_.shape[1]), device=dev).index_add_(0, fi, g_)
         for g_, fi, rn in flat14], reps=5)
-    rows["scatter_add_rows"]["per_launch_ms"] = {
-        "train_cls_ssg": [cuda_ms(lambda a=a: pallas_gather.
-                                  _launch_scatter_add_rows(*a), reps=5)
-                          for a in r_sc["train_cls_ssg"]],
-        "group_points_pallas": [cuda_ms(lambda a=a: pallas_gather.
-                                        _launch_scatter_add_rows(*a), reps=5)
-                                for a in r14.calls]}
-    rows["scatter_add_rows"]["library_per_launch_ms"] = {
-        "train_cls_ssg": index_add_ms(r_sc["train_cls_ssg"], torch),
-        "group_points_pallas": index_add_ms(r14.calls, torch)}
-    print("   kernel 14 vs index_add_ (ms): P11 "
-          + ", ".join(f"{k:.3f} vs {lb:.3f}" for k, lb in zip(
-              rows["scatter_add_rows"]["per_launch_ms"]["train_cls_ssg"],
-              rows["scatter_add_rows"]["library_per_launch_ms"][
-                  "train_cls_ssg"]))
-          + "; kernels-13/14 phase " + ", ".join(
-              f"{k:.3f} vs {lb:.3f}" for k, lb in zip(
-                  rows["scatter_add_rows"]["per_launch_ms"][
-                      "group_points_pallas"],
-                  rows["scatter_add_rows"]["library_per_launch_ms"][
-                      "group_points_pallas"])))
+    rows["scatter_add_rows"]["shapes"] = scatter_table(
+        pallas_gather, kernels, {
+            "P10 cls-msg SA2 fused": r_sc["train_cls_msg"][0],
+            "P11 cls-ssg SA2": r_sc["train_cls_ssg"][0],
+            "phase M 8192": r14.calls[0], "phase M 16384": r14.calls[1]},
+        torch)
     rows["gather_rows"]["per_launch_ms"] = [
         cuda_ms(lambda a=a: pallas_gather._launch_gather_rows(*a), reps=5)
         for a in r13.calls]
@@ -1804,14 +1885,6 @@ def main(argv=None):
     k14 = check_path_kernels(mods, rec14, torch)
     need(max(k14["nn1"]["batch_sizes"]) > 1 and "icp_mega_batch" in k14,
          "figure-eight: no closure batch among the checked launches", k14)
-    # K1's time over all of P14's launches, replayed back to back
-    k14["nn1"]["total_ms"] = cuda_ms(
-        lambda: [pallas_nn.nn1(*a) for a in rec14["nn1"].calls], reps=1)
-    k14["nn1"]["total_bound_ms"] = bound(
-        sum(nbytes(q, db, pen) + q.shape[0] * q.shape[1] * 8
-            for q, db, pen in rec14["nn1"].calls),
-        sum(8.0 * q.shape[0] * q.shape[1] * db.shape[1]
-            for q, db, _ in rec14["nn1"].calls))[0]
     metrics["slam_figure_eight"] = dict(
         frames=128, seconds=p14_s, keyframes=len(out14["keyframes"]),
         closures=len(cl14), max_closure_gap=max(b - a for a, b in cl14),
@@ -1831,9 +1904,6 @@ def main(argv=None):
           f"{m14['sparse_f64_ms']:.0f} ms); split (s) "
           + ", ".join(f"{k} {v:.3f}" for k, v in split14.items()))
     print(kernels_line("P14", k14))
-    print(f"   P14 K1: {len(rec14['nn1'].calls)} launches in "
-          f"{k14['nn1']['total_ms']:.2f} ms (bound "
-          f"{k14['nn1']['total_bound_ms']:.3f} ms)")
 
     # ---- P15 the registration-dataset driver on P1's pairs -----------------
     reg_dir = ROOT / "build" / "chip_smoke_reg"
@@ -1882,6 +1952,25 @@ def main(argv=None):
         rows[name]["max_abs_err"] = max(
             [rows[name]["max_abs_err"]]
             + [k[name]["max_abs_err"] for k in (k13, k14, k15) if name in k])
+
+    # ---- K1 per launch at every path's shapes ------------------------------
+    print("K1 per launch at the paths' shapes (device time, CUDA graph):")
+    metrics["nn1_launches"] = nn1_table(pallas_nn, {
+        "P1 register_pairs": r_nn.calls[:1],
+        "P3 exact refine": r_nn_w4.calls[:1],
+        "P13 front end": [next(a for a in rec13["nn1"].calls
+                               if a[0].shape[0] == 1)],
+        "P13 all launches": rec13["nn1"].calls,
+        "P14 all launches": rec14["nn1"].calls}, kernels.sm_count(dev), torch)
+    prof13 = {r["name"].replace("(anonymous namespace)::", "").split("(")[0]:
+              r for r in report["profile_slam"].get("by_kernel", [])
+              if "nn1" in r["name"]}
+    metrics["nn1_launches"]["P13 profiler"] = dict(
+        ms=sum(r["ms"] for r in prof13.values()),
+        kernels={k: r["count"] for k, r in prof13.items()})
+    print(f"   K1 in P13's profiled call: "
+          f"{metrics['nn1_launches']['P13 profiler']['ms']:.2f} ms ("
+          + ", ".join(f"{k} x{r['count']}" for k, r in prof13.items()) + ")")
 
     # ---- K4 / kernel 5: every recorded launch of every path ----------------
     print("K4 / kernel 5, each recorded launch timed alone:")

@@ -102,6 +102,18 @@ def entry(source: str, name: str, n_int: int = 0, n_float: int = 0,
     return fn
 
 
+_sms: dict = {}
+
+
+def sm_count(device: torch.device) -> int:
+    """The SMs of a CUDA device (cached per device)."""
+    idx = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if idx not in _sms:
+        _sms[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _sms[idx]
+
+
 def stream_ptr(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 

@@ -265,8 +265,8 @@ def card_capacity(device: torch.device) -> tuple:
         ctas = ctypes.c_int(0)
         with torch.cuda.device(idx):
             kernels.check(fn(idx, ctypes.byref(ctas)), "icp_mega capacity")
-        sms = torch.cuda.get_device_properties(idx).multi_processor_count
-        _capacity[idx] = (sms, ctas.value)
+        _capacity[idx] = (kernels.sm_count(torch.device("cuda", idx)),
+                          ctas.value)
     return _capacity[idx]
 
 

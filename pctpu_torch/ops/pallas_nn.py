@@ -17,6 +17,42 @@ from pctpu_torch import kernels
 BIG = 1e30
 DB_TILE = 2048      # plain version's db chunk (bounds its [B,M,tile] temps)
 Q_CHUNK = 256       # plain version's query chunk on the CPU
+QPT = 4             # K1's queries per thread (csrc/nn1.cu kQPT)
+THREADS = 128       # K1's CTA width (csrc/nn1.cu kThreads)
+CTAS_PER_SM = 16    # CTAs per SM a launch is cut into at most
+MAX_SLICES = 16     # db slices at most: the merge reads a partial from each
+MIN_SLICE = 128     # db points a slice keeps at least
+
+_tickets: dict = {}
+
+
+def nn1_plan(b: int, m: int, n: int, sms: int) -> dict:
+    """How one K1 launch of b x m queries against b x n db points spreads
+    over a card of `sms` SMs, as `csrc/nn1.cu` computes it.
+
+    A CTA of THREADS threads holds a tile of THREADS * QPT queries and
+    scans one of `slices` db slices of `slice_len` points; the grid is
+    tiles x slices CTAs for each of the b batch elements. The db is cut
+    into as many slices as keep the grid within CTAS_PER_SM CTAs per SM,
+    at most MAX_SLICES of at least MIN_SLICE points: one slice where the
+    query tiles alone fill the card that far."""
+    tiles = max(1, -(-m // (THREADS * QPT)))
+    slices = max(1, min(CTAS_PER_SM * sms // (b * tiles), MAX_SLICES,
+                        n // MIN_SLICE))
+    slice_len = -(-n // slices)
+    slices = -(-n // slice_len) if n else 1
+    return dict(tiles=tiles, slices=slices, slice_len=slice_len,
+                grid=b * tiles * slices)
+
+
+def _ticket_buffer(device: torch.device, count: int) -> torch.Tensor:
+    """At least `count` int32 tickets for K1's multi-slice launches on
+    `device`, zeroed once: the kernel puts each ticket back to 0."""
+    buf = _tickets.get(device)
+    if buf is None or buf.numel() < count:
+        buf = torch.zeros(max(count, 4096), dtype=torch.int32, device=device)
+        _tickets[device] = buf
+    return buf
 
 
 def _penalty(db_mask: Optional[torch.Tensor], b: int, n: int,
@@ -73,12 +109,21 @@ def nn1(query: torch.Tensor, db: torch.Tensor, pen: torch.Tensor):
         return nearest_plain(query.float(), db.float(), pen.float())
     f32 = torch.float32
     kernels.require_cuda("nn1", query, db, pen, dtypes=(f32, f32, f32))
-    d2 = torch.empty((b, m), dtype=f32, device=query.device)
-    idx = torch.empty((b, m), dtype=torch.int32, device=query.device)
-    fn = kernels.entry("nn1.cu", "pct_nn1", n_ptr=5, n_int=3)
+    dev = query.device
+    d2 = torch.empty((b, m), dtype=f32, device=dev)
+    idx = torch.empty((b, m), dtype=torch.int32, device=dev)
+    plan = nn1_plan(b, m, n, kernels.sm_count(dev))
+    parts = tickets = None
+    if plan["slices"] > 1:     # partials [2, S, B, M]: d2 bits, then idx
+        part = torch.empty((2, plan["slices"], b, m), dtype=torch.int32,
+                           device=dev)
+        parts = (part[0].data_ptr(), part[1].data_ptr())
+        tickets = _ticket_buffer(dev, b * plan["tiles"]).data_ptr()
+    fn = kernels.entry("nn1.cu", "pct_nn1", n_ptr=8, n_int=6)
     kernels.check(fn(query.data_ptr(), db.data_ptr(), pen.data_ptr(),
-                     d2.data_ptr(), idx.data_ptr(), b, m, n,
-                     kernels.stream_ptr(query.device)), "nn1")
+                     d2.data_ptr(), idx.data_ptr(), *(parts or (None, None)),
+                     tickets, b, m, n, plan["tiles"], plan["slices"],
+                     plan["slice_len"], kernels.stream_ptr(dev)), "nn1")
     nn1.launches += 1
     return d2, idx
 
@@ -95,3 +140,16 @@ def nearest_batch(query: torch.Tensor, db: torch.Tensor,
     pen = _penalty(db_mask, b, n, db.device)
     return nn1(query.float().contiguous(), db.float().contiguous(),
                pen.contiguous())
+
+
+def nearest_pallas(query: torch.Tensor, db: torch.Tensor,
+                   db_mask: Optional[torch.Tensor] = None,
+                   query_tile: int = 512, db_tile: int = 2048,
+                   interpret: bool = False):
+    """The reference's single-cloud entry: query [M,3], db [N,3], db_mask
+    [N] -> (d2 [M] f32, idx [M] int32), through K1 at B = 1. Ties go to
+    the lowest index. `query_tile`, `db_tile` and `interpret` are the TPU
+    kernel's layout; they are accepted and ignored."""
+    d2, idx = nearest_batch(query[None], db[None],
+                            None if db_mask is None else db_mask[None])
+    return d2[0], idx[0]

@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from pctpu_torch import kernels
 from pctpu_torch.features import pallas_fpfh
 from pctpu_torch.features.fpfh_dense import normals_radius_dense
 from pctpu_torch.ops import (pallas_ballgroup, pallas_banded, pallas_fps,
@@ -52,6 +53,65 @@ def test_nn1_kernel_matches_plain(gen, cuda):
     d2p, idxp = pallas_nn.nearest_plain(q, db, pen)
     torch.testing.assert_close(d2k, d2p, rtol=1e-6, atol=0)
     assert torch.equal(idxk, idxp)
+
+
+def _grid_ties(dev, b=1):
+    """A 4x4x4 integer grid (shuffled per batch element) as the db and
+    queries at its points and half-integer offsets, equidistant from 2, 4
+    or 8 db points."""
+    g = np.stack(np.meshgrid(*[np.arange(4)] * 3, indexing="ij"),
+                 -1).reshape(-1, 3).astype(np.float32)
+    rng = np.random.default_rng(3)
+    db = np.stack([g[rng.permutation(64)] for _ in range(b)])
+    q = np.concatenate([g, g + 0.5, g + [0.5, 0, 0], g + [0.5, 0.5, 0]]
+                       ).astype(np.float32)
+    return _t(np.stack([q] * b), dev), _t(db, dev)
+
+
+@pytest.mark.parametrize("case", ["grid_ties", "slam_front_end",
+                                  "few_queries_whole_scan", "all_masked",
+                                  "first_slices_masked"])
+def test_nn1_kernel_equals_plain_exactly(gen, cuda, case):
+    """K1's d2 and idx equal the plain version's exactly: ties on a grid
+    (with the db repeated 64 times, so equal distances fall in different
+    slices), the SLAM front end's 1 x 4,096 x 4,096 launch, 64 queries
+    against a 124,668-point db (hundreds of slices), an all-masked db
+    ((1e30, 0)), and a db whose first slices are all masked."""
+    if case == "grid_ties":
+        q, db = _grid_ties(cuda, b=3)
+        db = db.repeat(1, 64, 1).contiguous()
+    elif case == "slam_front_end":
+        db = _t(gen.uniform(-20, 20, (1, 4096, 3)).astype(np.float32), cuda)
+        q = db[:, gen.permutation(4096)] + 0.05 * torch.randn(
+            (1, 4096, 3), device=cuda, generator=torch.Generator(
+                cuda).manual_seed(0))
+    elif case == "few_queries_whole_scan":
+        db = _t(gen.uniform(-80, 80, (1, 124668, 3)).astype(np.float32),
+                cuda)
+        q = db[:, :64] + 0.1
+    else:
+        db = _t(gen.uniform(-5, 5, (2, 5000, 3)).astype(np.float32), cuda)
+        q = _t(gen.uniform(-5, 5, (2, 700, 3)).astype(np.float32), cuda)
+    b, n = db.shape[0], db.shape[1]
+    pen = torch.zeros((b, n), device=cuda)
+    if case == "all_masked":
+        pen[:] = 1e30
+    if case == "first_slices_masked":
+        pen[:, :4000] = 1e30
+    q = q.contiguous()
+    plan = pallas_nn.nn1_plan(b, q.shape[1], n, kernels.sm_count(q.device))
+    d2k, idxk = pallas_nn.nn1(q, db, pen)
+    d2p, idxp = pallas_nn.nearest_plain(q, db, pen)
+    assert torch.equal(d2k, d2p) and torch.equal(idxk, idxp)
+    again = pallas_nn.nn1(q, db, pen)
+    assert torch.equal(again[0], d2k) and torch.equal(again[1], idxk)
+    if case in ("slam_front_end", "few_queries_whole_scan",
+                "first_slices_masked"):
+        assert plan["slices"] > 1
+    if case == "all_masked":
+        assert bool((d2k == 1e30).all()) and int(idxk.abs().max()) == 0
+    if case == "first_slices_masked":
+        assert int(idxk.min()) >= 4000
 
 
 def test_cuda_tensor_never_takes_the_plain_version(gen, cuda, monkeypatch):
@@ -481,6 +541,33 @@ def test_scatter_add_rows_kernel_matches_plain(gen, cuda, b, n, m, c):
     assert torch.equal(k, pallas_gather.scatter_add_rows_plain(g, idx, n))
     again = pallas_gather.scatter_add_rows_pallas(g, idx, n)
     assert torch.equal(k, again)                 # deterministic
+
+
+@pytest.mark.parametrize("case", ["one_row", "out_of_range", "c131", "c323",
+                                  "c700", "phase_m8192", "phase_m16384"])
+def test_scatter_add_rows_kernel_edge_cases(gen, cuda, case):
+    """Kernel 14 == its plain version bit for bit, and two runs give the
+    same bits: every entry on one row, indices out of range on both sides,
+    widths of 131, 323 and 700 channels (scalar loads; 700 walks each
+    bucket twice), and the kernels-13/14 phase's two shapes (C 320, float4
+    loads)."""
+    b, m, n = 4, 3000, 64
+    c = {"c131": 131, "c323": 323, "c700": 700}.get(case, 40)
+    if case.startswith("phase"):
+        b, m, n, c = 32, int(case[len("phase_m"):]), 512, 320
+    g = _t(gen.normal(size=(b, m, c)).astype(np.float32), cuda)
+    if case == "one_row":
+        idx = np.full((b, m), 9, np.int32)
+    elif case == "out_of_range":
+        idx = gen.choice([-7, -1, n, n + 40, 5], (b, m)).astype(np.int32)
+    else:
+        idx = gen.integers(0 if case.startswith("phase") else -2,
+                           n + (0 if case.startswith("phase") else 2),
+                           (b, m)).astype(np.int32)
+    idx = _t(idx, cuda)
+    k = pallas_gather.scatter_add_rows_pallas(g, idx, n)
+    assert torch.equal(k, pallas_gather.scatter_add_rows_plain(g, idx, n))
+    assert torch.equal(pallas_gather.scatter_add_rows_pallas(g, idx, n), k)
 
 
 def test_group_points_pallas_kernels_forward_backward(gen, cuda):

@@ -54,6 +54,34 @@ def test_scatter_add_rows_matches_jax(rng, b, n, m, c):
     np.testing.assert_array_equal(ours.numpy(), np.asarray(ref))
 
 
+@pytest.mark.parametrize("case", ["one_row", "out_of_range", "c131", "c323",
+                                  "c700"])
+def test_scatter_add_rows_edge_cases_match_jax(rng, case):
+    """Kernel 14's plain version == the reference (interpret mode) bit for
+    bit where the kernel's design has edges: every entry on one row (the
+    longest chain of adds), indices out of range on both sides (clipped
+    to rows 0 and n-1), and widths of 131, 323 and 700 channels (scalar
+    loads; more than one channel span per row)."""
+    b, m, n = 2, 96, 24
+    c = {"c131": 131, "c323": 323, "c700": 700}.get(case, 5)
+    g = rng.normal(size=(b, m, c)).astype(np.float32)
+    if case == "one_row":
+        idx = np.full((b, m), 7, np.int32)
+    elif case == "out_of_range":
+        idx = rng.choice([-5, -1, n, n + 9, 3], (b, m)).astype(np.int32)
+    else:
+        idx = rng.integers(-2, n + 2, (b, m)).astype(np.int32)
+    ref = jg.scatter_add_rows_pallas(jnp.asarray(g), jnp.asarray(idx), n,
+                                     rows_per_step=32, interpret=True)
+    ours = tg.scatter_add_rows_pallas(_t(g), _t(idx), n)
+    np.testing.assert_array_equal(ours.numpy(), np.asarray(ref))
+    if case == "one_row":
+        assert not ours[:, np.arange(n) != 7].any()
+    if case == "out_of_range":
+        assert set(np.flatnonzero(np.abs(ours.numpy()).sum((0, 2)))) == {
+            0, 3, n - 1}
+
+
 def test_scatter_add_rows_adds_in_ascending_index():
     """The order is the reference's: 1e8 + 1 - 1e8 + ... in f32 depends
     on it. Row 0 receives [1e8, 1, -1e8, 1] in that order: 0."""

@@ -63,3 +63,24 @@ def test_nn1_counts_only_kernel_launches(rng):
     before = pallas_nn.nn1.launches
     nearest(torch.from_numpy(q), torch.from_numpy(db), torch.from_numpy(mask))
     assert pallas_nn.nn1.launches == before
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_nearest_pallas_single_cloud_matches_jax(rng, masked):
+    """The single-cloud entry `nearest_pallas` (query [M,3], db [N,3],
+    db_mask [N]) == the reference's (interpret mode): idx equal and d2
+    within rtol 1e-6, duplicated db points included (the lowest index
+    wins); the tile and interpret arguments are accepted."""
+    q, db, mask = _case(rng, b=1, m=200, n=700, masked=masked)
+    db[0, 350:400] = db[0, 10:60]
+    ref_d2, ref_idx = nearest_pallas(jnp.asarray(q[0]), jnp.asarray(db[0]),
+                                     jnp.asarray(mask[0]) if masked else None,
+                                     query_tile=128, db_tile=256,
+                                     interpret=True)
+    d2, idx = pallas_nn.nearest_pallas(
+        torch.from_numpy(q[0]), torch.from_numpy(db[0]),
+        torch.from_numpy(mask[0]) if masked else None, query_tile=128,
+        db_tile=256, interpret=True)
+    assert d2.shape == (200,) and idx.dtype == torch.int32
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(ref_idx))
+    np.testing.assert_allclose(d2.numpy(), np.asarray(ref_d2), rtol=1e-6)
