@@ -85,9 +85,15 @@ Phases:
      within 1e-5); every recorded K4 / kernel-5 launch timed alone beside
      its bound, the CTAs it launched (P1-P3: at least one per SM) and the
      one-CTA-per-pair design's time, and that kernel's fixed cost per
-     iteration;
-  4. one JSON line of per-kernel numbers, the card's line, and last the
-     line {"ok": true, "device": {...}}.
+     iteration; kernels 10/11 per launch shape (SA1, SA2, P9's kernel 10,
+     P12's toy SA1 and SA2: `fps_plan`'s launch, us per step, the empty
+     step at the same CTA width, the bound) and K8 per P5 launch (device
+     time, `moments_v2_plan`'s units and lanes; every launch's per-tile
+     moments within 1e-12 of the plain version's);
+  4. one JSON line of per-kernel numbers (the 14 kernels and kernel 12's
+     backward, `ball_group_vjp`, kernel 14's entry on the training
+     paths), the card's line, and last the line {"ok": true, "device":
+     {...}}.
 
 Any failure raises: the exit code is nonzero and no result line is
 printed. Without CUDA, or outside a checkout of the repo, it exits with 2.
@@ -859,6 +865,9 @@ def check_banded(b, calls, torch):
                 need(torch.equal(k[0], p[0]) and torch.equal(k[1], p[1]),
                      name)
             else:
+                if name == "icp_moments_banded_v2":     # per tile
+                    rel = float((k - p).abs().max() / p.abs().max())
+                    need(rel <= 1e-12, name, "per tile", rel)
                 mk, mp_ = b._sum_partials(k), b._sum_partials(p)
                 rel = float((mk - mp_).abs().max() / mp_.abs().max())
                 need(rel <= 1e-6, name, rel)
@@ -883,6 +892,24 @@ def check_banded(b, calls, torch):
         bms, by = bound(byt, ops)
         out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                          bound_ms=bms, bound_by=by, library_ms=None)
+    # K8 per launch: device time (a CUDA graph of the 30 launches), its
+    # units and lanes, beside the bound of one launch
+    cl = calls["icp_moments_banded_v2"]
+    a0 = cl[0]
+    plan = b.moments_v2_plan(a0[3].shape[1], a0[9],
+                             torch.cuda.get_device_properties(0)
+                             .multi_processor_count)
+    row = out["icp_moments_banded_v2"]
+    row.update(per_launch_ms=graph_ms([
+        lambda a=a: b._launch_icp_moments_banded_v2(*a) for a in cl]) /
+        len(cl), plan=plan)
+    print(f"K8 per P5 launch: {row['per_launch_ms'] * 1e3:.2f} us device "
+          f"time ({plan['units']} units = {plan['tiles']} tiles x "
+          f"{plan['slices']} slices of {plan['slice']} queries, "
+          f"{plan['lanes']} lanes a query, {b.MOMENTS_QPT} queries a "
+          f"thread); "
+          f"bound {row['bound_ms'] / len(cl) * 1e3:.2f} us; {len(cl)} "
+          f"launches {row['ms']:.3f} ms (CUDA events)")
     return out
 
 
@@ -903,6 +930,37 @@ def check_fps(pf, calls, torch):
         k, p = pf._launch_fps(*args), pf.fps_plain(*args)
         torch.cuda.synchronize()
         need(torch.equal(k, p), "fps idx", tuple(args[0].shape), args[1])
+
+
+def fps_table(pf, kernels, cases, torch):
+    """Kernels 10/11 per recorded launch shape: `fps_plan`'s launch, us
+    per step (device time: a CUDA graph of 10 launches, / (m - 1)), the
+    empty step at the same CTA width (`pct_fps_floor`: one barrier and
+    the winner reduction, no distance work) and the bound per step."""
+    floor = kernels.entry("fps.cu", "pct_fps_floor", n_ptr=1, n_int=4)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    table = {}
+    for name, args in cases.items():
+        pts, m, elig = args
+        b, n, _ = pts.shape
+        plan = pf.fps_plan(b, n, m, sms)
+        steps = m - 1
+        out = torch.empty((b, m), dtype=torch.int32, device=pts.device)
+        us = graph_ms([lambda: pf._launch_fps(*args)] * 10) * 1e2 / steps
+        floor_us = graph_ms([lambda: kernels.check(floor(
+            out.data_ptr(), b, n, m, plan["threads"],
+            kernels.stream_ptr(pts.device)), "fps floor")] * 10
+            ) * 1e2 / steps
+        ops, byt = fps_work(args)
+        bus = bound(byt, ops)[0] * 1e3 / steps
+        table[name] = dict(shape=[b, n, m], plan=plan, us_per_step=us,
+                           floor_us_per_step=floor_us,
+                           bound_us_per_step=bus)
+        print(f"   FPS {name} (B {b}, N {n}, m {m}): {plan['threads']} "
+              f"threads x {plan['per']} ({plan['mode']}), {b} CTAs: "
+              f"{us:.3f} us per step, empty step {floor_us:.3f}, bound "
+              f"{bus:.4f}; {us * steps / 1e3:.4f} ms a launch")
+    return table
 
 
 def check_ball_group(bg, bq, gather, calls, torch):
@@ -1482,6 +1540,9 @@ def main(argv=None):
     rows["fps_pallas"] = dict(max_abs_err=0.0, **time_launches(
         pallas_fps._launch_fps, pallas_fps.fps_plain, rf10.calls,
         [fps_work(a) for a in rf10.calls]))
+    print(f"   kernel 11, one cls-msg forward (SA1 + SA2): "
+          f"{rows['fps_pallas_batched']['ms']:.4f} ms; kernel 10, P9's 4 "
+          f"launches: {rows['fps_pallas']['ms']:.4f} ms")
     rows["ball_group"] = dict(
         max_abs_err=bg_err, boundary_centres=bg_boundary, **time_launches(
             pallas_ballgroup._launch_ball_group,
@@ -1654,11 +1715,13 @@ def main(argv=None):
     shutil.rmtree(workdir, ignore_errors=True)
     n_steps, n_evals = toy.epochs * (32 // 8), toy.epochs * (16 // 8)
     t0 = time.perf_counter()
-    out12 = paths.run("fit", lambda: fit.fit(
-        toy, toy_train, toy_val, workdir=str(workdir), augment_pipeline=(),
-        device=dev), {"fps_pallas_batched": 2 * (n_steps + n_evals),
-                      "ball_group": 2 * (n_steps + n_evals),
-                      "scatter_add_rows": n_steps})
+    with Recorder(pallas_fps, "_launch_fps") as rf12:
+        out12 = paths.run("fit", lambda: fit.fit(
+            toy, toy_train, toy_val, workdir=str(workdir),
+            augment_pipeline=(), device=dev),
+            {"fps_pallas_batched": 2 * (n_steps + n_evals),
+             "ball_group": 2 * (n_steps + n_evals),
+             "scatter_add_rows": n_steps})
     fit_s = time.perf_counter() - t0
     need(out12["steps"] == n_steps and out12["best_val_acc"] > 0.9, "fit",
          out12["steps"], out12["best_val_acc"])
@@ -1681,6 +1744,19 @@ def main(argv=None):
           f"{out12['best_val_acc']:.4f} @ epoch {out12['best_epoch']} in "
           f"{fit_s:.1f} s; checkpoint {latest[1]}; resumed for "
           f"{out12b['steps']} steps to step {out12b['state'].step}")
+    check_fps(pallas_fps, rf12.calls, torch)
+    toy_sa = [a for a in rf12.calls if a[0].shape[1] < a[1]][:1] + [
+        a for a in rf12.calls if a[0].shape[1] > a[1]][:1]
+    need(len(toy_sa) == 2, "P12 FPS shapes",
+         sorted({(tuple(a[0].shape), a[1]) for a in rf12.calls}))
+    print(f"   kernel 11 on P12's {len(rf12.calls)} launches = fps_plain; "
+          f"per launch shape:")
+    rows["fps_pallas_batched"]["shapes"] = fps_table(pallas_fps, kernels, {
+        "SA1 (P7 cls-msg)": r_fps["cls_msg"][0],
+        "SA2 (P7 cls-msg)": r_fps["cls_msg"][1],
+        "P9 kernel 10": rf10.calls[0],
+        "P12 toy SA1 (N < m)": toy_sa[0], "P12 toy SA2": toy_sa[1]},
+        torch)
 
     # ---- kernels 13, 14: group_points_pallas on P10's unfused SA2 inputs --
     feats = [(p_, i_) for p_, i_ in r_gp["train_cls_msg"]
@@ -2129,11 +2205,19 @@ def main(argv=None):
                              "pctpu/ops/pallas_gather.py:84 "
                              "_scatter_add_kernel"),
     }
+    # kernel 12's backward is kernel 14's entry (`_bg_bwd`): its launches
+    # are kernel 14's on the training paths, its times P10's launch
+    meta["ball_group_vjp"] = ("pctpu_torch/csrc/gather.cu",
+                              "pctpu/ops/pallas_ballgroup.py:201 _bgb_bwd")
+    rows["ball_group_vjp"] = rows["scatter_add_rows"]
+    vjp_launches = sum(paths.launches[p].get("scatter_add_rows", 0)
+                       for p in ("train_cls_msg", "train_cls_ssg", "fit"))
     kern_rows = []
-    for name in KERNELS:
+    for name in KERNELS + ("ball_group_vjp",):
         source, replaces = meta[name]
         r = rows[name]
-        launches = paths.total(name)
+        launches = (vjp_launches if name == "ball_group_vjp"
+                    else paths.total(name))
         need(launches > 0, name, "never launched on a path")
         kern_rows.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,

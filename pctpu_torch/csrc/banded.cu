@@ -37,15 +37,44 @@
 // multiplies, 2-3 adds and a compare (K6: 3 subtracts more) at the FP32
 // CUDA-core rate; the inputs are read once per tile from L2.
 //
-// Design (a first, simple one): Hopper has no sequential grid, so each
-// query tile is one CTA (grid = number of tiles, 256 threads): the kernels
-// fill the card when there are more than 132 tiles. Each thread holds 2
-// queries in registers; the window streams through shared memory in
-// chunks of 2048 columns, structure-of-arrays, so every thread of a warp
-// reads the same word (a broadcast). K7/K8 reduce the 16 moments in a
-// fixed order (warp shuffles, then the warps' sums in warp order) with no
-// atomics, so a run is deterministic and the cross-tile sum happens once,
-// in the wrapper.
+// K6 and K7 (a first, simple design): Hopper has no sequential grid, so
+// each query tile is one CTA (grid = number of tiles, 256 threads); each
+// thread holds 2 queries in registers; the window streams through shared
+// memory in chunks of 2048 columns, structure-of-arrays, so every thread
+// of a warp reads the same word (a broadcast). K7 reduces the 16 moments
+// in a fixed order (warp shuffles, then the warps' sums in warp order)
+// with no atomics, so a run is deterministic and the cross-tile sum
+// happens once, in the wrapper.
+//
+// K8 (redesigned on the whole-loop ICP kernel's body, csrc/icp_mega.cu):
+// the first design ran one 256-thread CTA per tile (32 CTAs on 132 SMs at
+// P5's shape), 2 queries a thread and five scalar shared loads a column,
+// and spent two thirds of its 472 us a launch in the shape of its tie
+// branch (tools/fps_k8_sweep.py, H100 80GB HBM3, 700 W). Now:
+//  1. Units and lanes: a unit is (tile, query slice), one CTA; LANES lanes
+//     share a query (ops/pallas_banded.py:moments_v2_plan, the rule of
+//     pallas_icp_mega.unit_plan at B = 1: at least 3 units per SM where
+//     the shape allows), each scanning every LANES-th column of a block.
+//  2. Loads: the window streams through a two-slot ring of 1,024-column
+//     chunks loaded with cp.async, (x, y, z, pen2) as one float4, so one
+//     shared load serves a thread's 4 queries (2 were slower at P5's
+//     shape: more units, a load for every 2 queries).
+//  3. A branch-free scan: with many lanes a query, some lane of a warp
+//     lowers its running minimum on most columns, so a branch on it runs
+//     its body nearly always. Each lane keeps, per query, the block's
+//     running minimum, the first column that reached it and a flag set by
+//     any column equal to the running minimum. At a block's end the
+//     group's lanes combine the minimum by xor shuffles; a block that wins
+//     (strict '<': an earlier block keeps a tie) takes its one column's
+//     coordinates, or, where the minimum may be tied (the flag, or two
+//     lanes at it), the sum over the block's columns at the minimum with
+//     their count (each lane's in column order, the lanes' by xor).
+//  4. Partials: each unit writes its 16 f64 moments (a fixed-order CTA
+//     reduction) to scratch; the last unit of a tile to finish (an atomic
+//     ticket per tile, after a fence) sums the tile's units in slice order
+//     into out[tile] and puts the ticket back to 0. A run is
+//     deterministic, and the wrapper's [Mp/tq, 16] output is unchanged.
+//  5. An ordinary launch: one grid of all units, one ICP iteration.
 #include <cuda_runtime.h>
 
 namespace {
@@ -56,6 +85,9 @@ constexpr int kQ = 2;          // queries per thread per pass
 constexpr int kChunk = 2048;   // db columns per shared-memory chunk
 constexpr int kLutBins = 1024;
 constexpr float kBig = 1e30f;
+constexpr int kMomThreads = 256;   // K8: threads a unit
+constexpr int kMomQpt = 4;         // K8: queries a thread
+constexpr int kMomChunk = 1024;    // K8: db columns a ring slot
 
 // ---- K6 -------------------------------------------------------------------
 
@@ -120,7 +152,7 @@ banded_nn_kernel(const float* __restrict__ q, const float* __restrict__ dbt,
   }
 }
 
-// ---- K7 / K8 shared association + moments ----------------------------------
+// ---- K7 association + moments -----------------------------------------------
 
 struct Window {
   float x[kChunk], y[kChunk], z[kChunk], one[kChunk], p2[kChunk];
@@ -265,57 +297,252 @@ banded_moments_kernel(const float* __restrict__ q,
 
 // ---- K8 -------------------------------------------------------------------
 
-__global__ void __launch_bounds__(kThreads)
-banded_moments_v2_kernel(const float* __restrict__ scal,
-                         const int* __restrict__ lut,
-                         const float* __restrict__ centers,
-                         const float* __restrict__ src3,
-                         const float* __restrict__ spen,
-                         const float* __restrict__ dbt4,
-                         const float* __restrict__ pen2t,
-                         double* __restrict__ out, int Mp, int Np, int block,
-                         int wb, int tq, float thresh2) {
-  __shared__ Window w;
-  const int tile = blockIdx.x, tid = threadIdx.x;
-  const float r00 = scal[0], r01 = scal[1], r02 = scal[2];
-  const float r10 = scal[3], r11 = scal[4], r12 = scal[5];
-  const float r20 = scal[6], r21 = scal[7], r22 = scal[8];
-  const float t0 = scal[9], t1 = scal[10], t2 = scal[11];
-  const float lo = scal[12], hi = scal[13], axf = scal[14];
+struct MomentsArgs {
+  const float* scal;     // [16] R row-major, t, lo, hi, axis, 0
+  const int* lut;        // [kLutBins + 1]
+  const float* centers;  // [3 * Mp / tq]
+  const float* src3;     // [3, Mp]
+  const float* spen;     // [Mp]
+  const float* dbt4;     // [4, Np] x, y, z, ones
+  const float* pen2t;    // [Np]
+  double* out;           // [Mp / tq, 16]
+  double* part;          // [units, 16] scratch: each unit's moments
+  unsigned* tickets;     // [Mp / tq] zero: units of the tile done
+  int Mp, Np, block, wb, tq, lanes;
+  float thresh2;
+};
+
+__device__ __forceinline__ void cp_async4(void* smem, const float* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// db columns [g0, g0 + len) -> one ring slot of (x, y, z, pen2)
+__device__ void stage_moments(float4* s4, const float* dbt4,
+                              const float* pen2t, int Np, int g0, int len) {
+  for (int c = threadIdx.x; c < len; c += kMomThreads) {
+    const float* p = dbt4 + g0 + c;
+    cp_async4(&s4[c].x, p);
+    cp_async4(&s4[c].y, p + Np);
+    cp_async4(&s4[c].z, p + 2 * Np);
+    cp_async4(&s4[c].w, pen2t + g0 + c);
+  }
+  cp_async_commit();
+}
+
+// d2' of a db column for a transformed query, in K8's order
+__device__ __forceinline__ float k8_d2(float qx, float qy, float qz, float x,
+                                       float y, float z, float pen2) {
+  const float cross = (qx * x + qy * y) + qz * z;
+  return pen2 - 2.0f * cross;
+}
+
+__global__ void __launch_bounds__(kMomThreads, 3)
+banded_moments_v2_kernel(const MomentsArgs a) {
+  constexpr int QPT = kMomQpt;
+  __shared__ float4 s4[2][kMomChunk];
+  __shared__ double red[kWarps][16];
+  __shared__ int is_last;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int L = a.lanes, sub = tid % L, grp = tid / L;
+  const int ngrp = kMomThreads / L, S = ngrp * QPT;   // queries a unit
+  const int spt = (a.tq + S - 1) / S;
+  const int u = blockIdx.x, tile = u / spt, q0 = (u - tile * spt) * S;
+  const int nb = a.Np / a.block, W = a.wb * a.block;
+  const int nch = (W + kMomChunk - 1) / kMomChunk;
+  // the lanes of this thread's query group within its warp
+  const unsigned gmask =
+      L == 32 ? 0xffffffffu : ((1u << L) - 1u) << (lane & ~(L - 1));
+  const float inf = __int_as_float(0x7f800000);
+  const float* sc = a.scal;
+  const float r00 = sc[0], r01 = sc[1], r02 = sc[2];
+  const float r10 = sc[3], r11 = sc[4], r12 = sc[5];
+  const float r20 = sc[6], r21 = sc[7], r22 = sc[8];
+  const float t0 = sc[9], t1 = sc[10], t2 = sc[11];
+  const float lo = sc[12], hi = sc[13], axf = sc[14];
+  const float* dbx = a.dbt4;
+  const float *dby = dbx + a.Np, *dbz = dbx + 2 * a.Np, *dbo = dbx + 3 * a.Np;
 
   // window base from the tile's TRANSFORMED centre (reference :332-343)
-  const float c0 = centers[3 * tile], c1 = centers[3 * tile + 1],
-              c2 = centers[3 * tile + 2];
+  const float c0 = a.centers[3 * tile], c1 = a.centers[3 * tile + 1],
+              c2 = a.centers[3 * tile + 2];
   const float cx = r00 * c0 + r01 * c1 + r02 * c2 + t0;
   const float cy = r10 * c0 + r11 * c1 + r12 * c2 + t1;
   const float cz = r20 * c0 + r21 * c1 + r22 * c2 + t2;
   const float val = axf < 0.5f ? cx : (axf < 1.5f ? cy : cz);
   const float binf = (val - lo) / fmaxf(hi - lo, 1e-12f) * (float)kLutBins;
   const int bin = (int)fminf(fmaxf(binf, 0.f), (float)kLutBins);
-  const int nb = Np / block;
-  const int base = min(max(lut[bin] / block - wb / 2, 0), nb - wb);
+  const int base = min(max(a.lut[bin] / a.block - a.wb / 2, 0), nb - a.wb);
+  const int g0 = base * a.block;
+  stage_moments(s4[0], a.dbt4, a.pen2t, a.Np, g0, min(kMomChunk, W));
 
+  // the unit's queries, transformed as ((r0 x + r1 y) + r2 z) + t. Per
+  // query and lane: the block's running minimum, the first column that
+  // reached it, and whether any column equalled the running minimum (a
+  // possible tie); per query: the best block's minimum and its matched
+  // coordinate sums and count
+  float qx[QPT], qy[QPT], qz[QPT];
+  float minv[QPT], mx[QPT], my[QPT], mz[QPT], mc[QPT];
+  float bmin[QPT];
+  int bidx[QPT];
+  bool teq[QPT];
+#pragma unroll
+  for (int s = 0; s < QPT; ++s) {
+    const int qi = q0 + s * ngrp + grp;
+    const int col = tile * a.tq + (qi < a.tq ? qi : 0);
+    const float x = a.src3[col], y = a.src3[a.Mp + col],
+                z = a.src3[2 * a.Mp + col];
+    qx[s] = r00 * x + r01 * y + r02 * z + t0;
+    qy[s] = r10 * x + r11 * y + r12 * z + t1;
+    qz[s] = r20 * x + r21 * y + r22 * z + t2;
+    minv[s] = kBig;
+    mx[s] = my[s] = mz[s] = 0.f;
+    mc[s] = 1.f;
+    bmin[s] = inf;
+    bidx[s] = 0;
+    teq[s] = false;
+  }
+
+  for (int ch = 0; ch < nch; ++ch) {
+    const int buf = ch & 1, c_lo = ch * kMomChunk;
+    const int c_hi = min(W, c_lo + kMomChunk);
+    if (ch + 1 < nch) {   // the next chunk flies while this one runs
+      stage_moments(s4[buf ^ 1], a.dbt4, a.pen2t, a.Np, g0 + c_hi,
+                    min(kMomChunk, W - c_hi));
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float4* p4 = s4[buf];
+    for (int cb = c_lo; cb < c_hi;) {
+      const int bend = min(c_hi, (cb / a.block + 1) * a.block);
+#pragma unroll 4
+      for (int c = cb + sub; c < bend; c += L) {   // branch-free
+        const float4 p = p4[c - c_lo];
+#pragma unroll
+        for (int s = 0; s < QPT; ++s) {
+          const float d2 = k8_d2(qx[s], qy[s], qz[s], p.x, p.y, p.z, p.w);
+          teq[s] = teq[s] || d2 == bmin[s];
+          bidx[s] = d2 < bmin[s] ? c : bidx[s];
+          bmin[s] = fminf(bmin[s], d2);
+        }
+      }
+      if (bend % a.block == 0) {   // a db block ends: its lanes combine
+        const int blk0 = bend - a.block;
+#pragma unroll
+        for (int s = 0; s < QPT; ++s) {
+          float M = bmin[s];
+          for (int o = L >> 1; o > 0; o >>= 1)
+            M = fminf(M, __shfl_xor_sync(0xffffffffu, M, o));
+          const unsigned at = __ballot_sync(0xffffffffu, bmin[s] == M) & gmask;
+          const unsigned tie =
+              __ballot_sync(0xffffffffu, bmin[s] == M && teq[s]) & gmask;
+          const int first = __shfl_sync(0xffffffffu, bidx[s], __ffs(at) - 1);
+          if (M < minv[s]) {   // strict: an earlier block wins a tie
+            minv[s] = M;
+            if (__popc(at) == 1 && tie == 0) {   // one column at the minimum
+              const int g = g0 + first;
+              mx[s] = dbx[g];
+              my[s] = dby[g];
+              mz[s] = dbz[g];
+              mc[s] = dbo[g];
+            } else {   // ties: each lane sums its columns at the minimum in
+                       // column order, then the group's lanes by xor
+              float sx = 0.f, sy = 0.f, sz = 0.f, so = 0.f;
+              for (int c = blk0 + sub; c < bend; c += L) {
+                const int g = g0 + c;
+                const float x = dbx[g], y = dby[g], z = dbz[g];
+                if (k8_d2(qx[s], qy[s], qz[s], x, y, z, a.pen2t[g]) == M) {
+                  sx += x;
+                  sy += y;
+                  sz += z;
+                  so += dbo[g];
+                }
+              }
+              for (int o = L >> 1; o > 0; o >>= 1) {
+                sx += __shfl_xor_sync(gmask, sx, o);
+                sy += __shfl_xor_sync(gmask, sy, o);
+                sz += __shfl_xor_sync(gmask, sz, o);
+                so += __shfl_xor_sync(gmask, so, o);
+              }
+              mx[s] = sx;
+              my[s] = sy;
+              mz[s] = sz;
+              mc[s] = so;
+            }
+          }
+          bmin[s] = inf;
+          teq[s] = false;
+        }
+      }
+      cb = bend;
+    }
+    __syncthreads();   // this slot is refilled two chunks on
+  }
+
+  // the unit's moments (lane 0 of each group), f64, in a fixed order
   double m[16];
 #pragma unroll
   for (int e = 0; e < 16; ++e) m[e] = 0.0;
-  for (int p0 = 0; p0 < tq; p0 += kThreads * kQ) {
-    float xt[kQ], yt[kQ], zt[kQ], qp[kQ];
-    bool live[kQ];
 #pragma unroll
-    for (int s = 0; s < kQ; ++s) {
-      const int qi = p0 + s * kThreads + tid;
-      live[s] = qi < tq;
-      const int col = tile * tq + (live[s] ? qi : 0);
-      const float x = src3[col], y = src3[Mp + col], z = src3[2 * Mp + col];
-      xt[s] = r00 * x + r01 * y + r02 * z + t0;
-      yt[s] = r10 * x + r11 * y + r12 * z + t1;
-      zt[s] = r20 * x + r21 * y + r22 * z + t2;
-      qp[s] = spen[col];
-    }
-    window_moments(xt, yt, zt, qp, live, dbt4, pen2t, Np, base, block, wb,
-                   thresh2, w, m);
+  for (int s = 0; s < QPT; ++s) {
+    const int qi = q0 + s * ngrp + grp;
+    if (qi >= a.tq || sub != 0) continue;
+    const float cnt = fmaxf(mc[s], 1.f);
+    const float hq[4] = {mx[s] / cnt, my[s] / cnt, mz[s] / cnt, 1.f};
+    const float qn = (qx[s] * qx[s] + qy[s] * qy[s]) + qz[s] * qz[s];
+    const float qp = a.spen[tile * a.tq + qi];
+    const float wt = ((minv[s] + qn) + qp) < a.thresh2 ? 1.f : 0.f;
+    const float hp[4] = {qx[s] * wt, qy[s] * wt, qz[s] * wt, wt};
+#pragma unroll
+    for (int e = 0; e < 16; ++e)
+      m[e] += (double)hp[e / 4] * (double)hq[e % 4];
   }
-  reduce_moments(m, out + (size_t)tile * 16);
+#pragma unroll
+  for (int e = 0; e < 16; ++e) {
+    double v = m[e];
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+    if (lane == 0) red[warp][e] = v;
+  }
+  __syncthreads();
+  if (spt == 1) {   // the unit is the tile
+    if (tid < 16) {
+      double v = 0.0;
+      for (int w = 0; w < kWarps; ++w) v += red[w][tid];
+      a.out[(size_t)tile * 16 + tid] = v;
+    }
+    return;
+  }
+  if (tid < 16) {
+    double v = 0.0;
+    for (int w = 0; w < kWarps; ++w) v += red[w][tid];
+    a.part[(size_t)u * 16 + tid] = v;
+    __threadfence();
+  }
+  __syncthreads();
+  if (tid == 0)
+    is_last = atomicAdd(a.tickets + tile, 1u) == (unsigned)(spt - 1);
+  __syncthreads();
+  if (!is_last) return;
+  __threadfence();
+  if (tid < 16) {   // the tile's units in slice order
+    double v = 0.0;
+    for (int j = 0; j < spt; ++j)
+      v += __ldcg(a.part + ((size_t)tile * spt + j) * 16 + tid);
+    a.out[(size_t)tile * 16 + tid] = v;
+  }
+  if (tid == 0) a.tickets[tile] = 0u;
 }
 
 bool bad_tiling(int Mp, int Np, int block, int wb, int tq) {
@@ -354,17 +581,26 @@ extern "C" int pct_banded_moments(const float* q, const float* qpen,
 
 // scal [16] (R row-major, t, lo, hi, axis, 0), lut [1025] i32,
 // centers [3*Mp/tq], src3 [3,Mp], spen [Mp], dbt4 [4,Np], pen2t [Np]
-// -> out [Mp/tq,16] f64 per-tile moments.
+// -> out [Mp/tq,16] f64 per-tile moments. Scratch: part [units,16] f64
+// and tickets [Mp/tq] u32, zero (put back to 0), where units = (Mp/tq) *
+// ceil(tq / (256 * 4 / lanes)); lanes a power of two in [1, 32]
+// (ops/pallas_banded.py:moments_v2_plan).
 extern "C" int pct_banded_moments_v2(const float* scal, const int* lut,
                                      const float* centers, const float* src3,
                                      const float* spen, const float* dbt4,
-                                     const float* pen2t, double* out, int Mp,
+                                     const float* pen2t, double* out,
+                                     double* part, unsigned* tickets, int Mp,
                                      int Np, int block, int wb, int tq,
-                                     float thresh2, cudaStream_t stream) {
-  if (bad_tiling(Mp, Np, block, wb, tq)) return (int)cudaErrorInvalidValue;
+                                     int lanes, float thresh2,
+                                     cudaStream_t stream) {
+  if (bad_tiling(Mp, Np, block, wb, tq) || lanes < 1 || lanes > 32
+      || (lanes & (lanes - 1)) != 0)
+    return (int)cudaErrorInvalidValue;
   if (Mp == 0) return 0;
-  banded_moments_v2_kernel<<<Mp / tq, kThreads, 0, stream>>>(
-      scal, lut, centers, src3, spen, dbt4, pen2t, out, Mp, Np, block, wb, tq,
-      thresh2);
+  const int slice = kMomThreads / lanes * kMomQpt;
+  const int units = Mp / tq * ((tq + slice - 1) / slice);
+  const MomentsArgs a{scal, lut,  centers, src3, spen, dbt4, pen2t, out,
+                      part, tickets, Mp, Np, block, wb, tq, lanes, thresh2};
+  banded_moments_v2_kernel<<<units, kMomThreads, 0, stream>>>(a);
   return (int)cudaGetLastError();
 }

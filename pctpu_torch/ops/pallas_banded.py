@@ -16,7 +16,9 @@ K7 and K8 sum each tile's 16 moments in f64 and write one [16] partial per
 tile; the wrapper sums the partials over the tiles in f64 and rounds once
 to f32. (The TPU kernels sum in f32 in an unspecified order.) The plain
 versions do the same, so kernel and plain version agree to f32 rounding of
-one f64 sum, and an ICP loop follows one trajectory on both.
+one f64 sum, and an ICP loop follows one trajectory on both. K8 spreads a
+launch over the card in units of (tile, query slice) with lanes that
+share a query, shaped by `moments_v2_plan`.
 """
 from __future__ import annotations
 
@@ -29,6 +31,15 @@ from pctpu_torch.core.cloud import round_up
 
 BIG = 1e30
 LUT_BINS = 1024
+
+# K8's CTA shape (csrc/banded.cu kMomThreads, kMomQpt): a unit holds
+# MOMENTS_THREADS * MOMENTS_QPT / lanes queries of one tile
+MOMENTS_THREADS, MOMENTS_QPT, MOMENTS_MAX_LANES = 256, 4, 32
+# the least units a launch aims for per SM (the rule of
+# pallas_icp_mega.unit_plan, which K8's body follows)
+MOMENTS_UNITS_PER_SM = 3
+
+_tickets: dict = {}
 
 
 class BandedDB(NamedTuple):
@@ -376,21 +387,83 @@ def icp_moments_banded_v2_plain(scal, lut, centers, src3, spen, dbt4, pen2t,
                                 pen2t, base, block, wb, thresh2)
 
 
+def moments_v2_plan(mp: int, query_tile: int, sms: int,
+                    lanes: Optional[int] = None) -> Optional[dict]:
+    """How one K8 launch of `mp` queries in tiles of `query_tile` spreads
+    over a card of `sms` SMs (the rule of `pallas_icp_mega.unit_plan` at
+    B = 1, with K8's CTA shape). `lanes` (a power of two up to 32) lanes
+    share a query, so a unit holds `slice` = MOMENTS_THREADS *
+    MOMENTS_QPT / lanes queries of one tile; by default `lanes` is first
+    raised until `slice` divides the tile, then until there are
+    MOMENTS_UNITS_PER_SM units per SM. A tile is `slices` units; the grid
+    is all `units`. None for lanes the kernel does not take."""
+    slots = MOMENTS_THREADS * MOMENTS_QPT
+    ntiles = mp // query_tile
+
+    def units(ln):
+        return ntiles * -(-query_tile // (slots // ln))
+    if lanes is None:
+        lanes = 1
+        while lanes < MOMENTS_MAX_LANES and query_tile % (slots // lanes):
+            lanes *= 2
+        while (lanes < MOMENTS_MAX_LANES
+               and units(lanes) < MOMENTS_UNITS_PER_SM * sms):
+            lanes *= 2
+    elif lanes < 1 or lanes > MOMENTS_MAX_LANES or lanes & (lanes - 1):
+        return None
+    slc = slots // lanes
+    return dict(lanes=lanes, slice=slc, slices=-(-query_tile // slc),
+                tiles=ntiles, units=units(lanes), sms=sms)
+
+
+def moments_v2_unit_queries(plan: dict, query_tile: int, unit: int) -> list:
+    """The query columns unit `unit` of a K8 launch holds, in the
+    kernel's thread order: slice q0 of tile t, query q0 + s * (threads /
+    lanes) + group for s < MOMENTS_QPT, where it lies in the tile."""
+    groups = MOMENTS_THREADS // plan["lanes"]
+    tile, sl = divmod(unit, plan["slices"])
+    q0 = sl * plan["slice"]
+    return [tile * query_tile + q0 + s * groups + g
+            for s in range(MOMENTS_QPT) for g in range(groups)
+            if q0 + s * groups + g < query_tile]
+
+
+def _ticket_buffer(device: torch.device, count: int) -> torch.Tensor:
+    """At least `count` 32-bit tickets (one per query tile) for K8 on
+    `device`, zeroed once: the kernel puts each ticket back to 0."""
+    buf = _tickets.get(device)
+    if buf is None or buf.numel() < count:
+        buf = torch.zeros(max(count, 1024), dtype=torch.int32, device=device)
+        _tickets[device] = buf
+    return buf
+
+
 def _launch_icp_moments_banded_v2(scal, lut, centers, src3, spen, dbt4,
-                                  pen2t, block, wb, query_tile, thresh2):
+                                  pen2t, block, wb, query_tile, thresh2,
+                                  plan: Optional[dict] = None):
+    """Launch K8 on CUDA tensors (the layouts of
+    `icp_moments_banded_v2_plain`) -> [ntiles,16] f64: one CTA per unit
+    of `plan` (default `moments_v2_plan`); the last unit of each tile sums
+    the tile's unit partials in slice order."""
     f32, i32 = torch.float32, torch.int32
     kernels.require_cuda("icp_moments_banded_v2", scal, lut, centers, src3,
                          spen, dbt4, pen2t,
                          dtypes=(f32, i32, f32, f32, f32, f32, f32))
+    dev = src3.device
     mp, np_ = src3.shape[1], dbt4.shape[1]
+    if plan is None:
+        plan = moments_v2_plan(mp, query_tile, kernels.sm_count(dev))
     out = torch.empty((mp // query_tile, 16), dtype=torch.float64,
-                      device=src3.device)
-    fn = kernels.entry("banded.cu", "pct_banded_moments_v2", n_ptr=8,
-                       n_int=5, n_float=1)
+                      device=dev)
+    part = torch.empty((plan["units"], 16), dtype=torch.float64, device=dev)
+    tickets = _ticket_buffer(dev, mp // query_tile)
+    fn = kernels.entry("banded.cu", "pct_banded_moments_v2", n_ptr=10,
+                       n_int=6, n_float=1)
     kernels.check(fn(scal.data_ptr(), lut.data_ptr(), centers.data_ptr(),
                      src3.data_ptr(), spen.data_ptr(), dbt4.data_ptr(),
-                     pen2t.data_ptr(), out.data_ptr(), mp, np_, block, wb,
-                     query_tile, thresh2, kernels.stream_ptr(src3.device)),
+                     pen2t.data_ptr(), out.data_ptr(), part.data_ptr(),
+                     tickets.data_ptr(), mp, np_, block, wb, query_tile,
+                     plan["lanes"], thresh2, kernels.stream_ptr(dev)),
                   "icp_moments_banded_v2")
     return out
 

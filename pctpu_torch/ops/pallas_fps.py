@@ -11,7 +11,8 @@ among equal maxima wins. `skip_near_origin` makes points with
 repeat, as in the reference.
 
 Kernel 10 is kernel 11's CUDA entry launched at B = 1; each wrapper has
-its own `launches` counter.
+its own `launches` counter. `fps_plan` picks a launch's CTA width and
+where the kernel keeps each cloud.
 """
 from __future__ import annotations
 
@@ -23,6 +24,28 @@ from pctpu_torch import kernels
 
 NEG = -1e30
 INIT_MIND = 1e10
+
+# the kernel's limits (csrc/fps.cu): a CTA of up to MAX_THREADS threads
+# per cloud; a thread holds PER points (a template constant); the points'
+# xyz and `mind` take 4 registers a point, and a CTA spends at most
+# REG_BUDGET registers on them; a cloud's xyz fits shared memory up to
+# SMEM_POINTS_MAX bytes
+MAX_THREADS = 1024
+PER_CHOICES = (1, 2, 4, 8, 16)
+REG_BUDGET = 32768
+SMEM_POINTS_MAX = 200 * 1024
+# the CTA width: the power of two that gives each thread about
+# POINTS_PER_THREAD points, within [MIN_THREADS, WIDE_THREADS], wider only
+# where a thread would hold more than 16 points. Fastest at every path's
+# shape in tools/fps_k8_sweep.py (H100 80GB HBM3, 700 W): a wider CTA
+# adds to the step's fixed barrier and reduction (0.15 us at 128 threads,
+# 0.25 at 1,024), more points a thread add to its serial argmax
+MIN_THREADS, WIDE_THREADS = 128, 256
+POINTS_PER_THREAD = 4
+# where the kernel keeps a cloud (the C entry's `mode`): xyz and mind in
+# registers; mind in registers, xyz read from shared memory; mind in a
+# global scratch row, xyz in shared memory; both in global memory
+MODES = ("registers", "shared", "scratch", "global")
 
 
 def fps_plain(points: torch.Tensor, m: int,
@@ -49,20 +72,58 @@ def fps_plain(points: torch.Tensor, m: int,
     return idx
 
 
-def _launch_fps(points: torch.Tensor, m: int,
-                eligible: torch.Tensor) -> torch.Tensor:
+def _pow2_at_least(x: int) -> int:
+    return 1 << max(0, x - 1).bit_length()
+
+
+def fps_plan(b: int, n: int, m: int, sms: int,
+             threads: Optional[int] = None) -> Optional[dict]:
+    """The launch of `b` clouds of `n` points, `m` picks each, on a card
+    of `sms` SMs: one CTA of `threads` threads per cloud (by default the
+    power of two near n / POINTS_PER_THREAD, within [MIN_THREADS,
+    WIDE_THREADS], doubled up to MAX_THREADS while a thread would hold
+    more than 16 points); thread t owns points t, t + threads, ..., `per` of
+    them (a power of two), and `mode` says where they live: "registers"
+    when their xyz and mind fit REG_BUDGET, else "shared" (xyz read from
+    shared memory each step) while per <= 16 and the cloud fits
+    SMEM_POINTS_MAX, else "scratch" (mind in a global row, per 0) or, past
+    shared memory, "global". None for a width the kernel does not take."""
+    if threads is None:
+        threads = min(WIDE_THREADS, max(MIN_THREADS, _pow2_at_least(
+            -(-n // POINTS_PER_THREAD))))
+        while n > PER_CHOICES[-1] * threads and threads < MAX_THREADS:
+            threads *= 2
+    elif threads % 32 or not 32 <= threads <= MAX_THREADS:
+        return None
+    per = _pow2_at_least(-(-n // threads))
+    fits_smem = 12 * n <= SMEM_POINTS_MAX
+    if per <= PER_CHOICES[-1] and fits_smem:
+        mode = "registers" if 4 * per * threads <= REG_BUDGET else "shared"
+    else:
+        mode, per = ("scratch" if fits_smem else "global"), 0
+    return dict(threads=threads, per=per, mode=mode, ctas=b,
+                sms_busy=min(b, sms), steps=max(m - 1, 0),
+                smem_bytes=12 * n if fits_smem else 0)
+
+
+def _launch_fps(points: torch.Tensor, m: int, eligible: torch.Tensor,
+                plan: Optional[dict] = None) -> torch.Tensor:
     """Launch `csrc/fps.cu` on CUDA tensors (the layouts of `fps_plain`)
-    -> idx [B,m] int32; one CTA per cloud."""
+    -> idx [B,m] int32: one CTA per cloud, shaped by `plan` (default
+    `fps_plan`)."""
     b, n, _ = points.shape
     kernels.require_cuda("fps", points, eligible,
                          dtypes=(torch.float32, torch.bool))
+    if plan is None:
+        plan = fps_plan(b, n, m, kernels.sm_count(points.device))
     idx = torch.empty((b, m), dtype=torch.int32, device=points.device)
-    # min-distance scratch, read only when a cloud's N is too large for
-    # the kernel to hold its share of `mind` in registers
-    scratch = torch.empty((b, n), dtype=torch.float32, device=points.device)
-    fn = kernels.entry("fps.cu", "pct_fps", n_ptr=4, n_int=3)
+    # `mind` rows, read only in the "scratch" and "global" modes
+    scratch = torch.empty((b, n) if plan["per"] == 0 else (1,),
+                          dtype=torch.float32, device=points.device)
+    fn = kernels.entry("fps.cu", "pct_fps", n_ptr=4, n_int=6)
     kernels.check(fn(points.data_ptr(), eligible.data_ptr(), idx.data_ptr(),
-                     scratch.data_ptr(), b, n, m,
+                     scratch.data_ptr(), b, n, m, plan["threads"],
+                     plan["per"], MODES.index(plan["mode"]),
                      kernels.stream_ptr(points.device)), "fps")
     return idx
 

@@ -388,6 +388,83 @@ def test_icp_moments_banded_v2_kernel_matches_plain(gen, cuda):
     assert float(mk[3, 3]) > 100
 
 
+def _k8_args(gen, dev, n, m, block, wb, tq, dup=1, grid=None):
+    """The argument tuple of `_launch_icp_moments_banded_v2` for a db of
+    `n` points (each repeated `dup` times, side by side in the banded
+    order: exact d2 ties within a block, across the lanes of a query and
+    at block edges) and `m` queries near it. `grid` rounds the db to
+    multiples of 1/grid (few significant bits, so the tie sums are exact
+    in any order)."""
+    db = gen.uniform(0, 10, (n // dup, 3)).astype(np.float32)
+    db[:, 0] *= 10
+    if grid:
+        db = np.round(db * grid) / grid
+    db = np.repeat(db, dup, axis=0).astype(np.float32)
+    q = (db[gen.integers(0, n, m)] + gen.normal(scale=0.05, size=(m, 3))
+         ).astype(np.float32)
+    q = q[np.argsort(q[:, 0])]
+    bdb = pallas_banded.build_banded(_t(db, dev), None, block=block)
+    src3, spen, centers = icp._query_layout(
+        _t(q, dev)[None], _t(np.ones(m, bool), dev)[None], tq)
+    T = torch.eye(4, device=dev)
+    T[:3, 3] = torch.tensor([0.05, -0.02, 0.01], device=dev)
+    return pallas_banded._icp_moments_banded_v2_args(
+        bdb, bdb.pen2.T, src3[0], spen[0], centers[0], T, block, wb, tq) + (
+        block, wb, tq, 4.0)
+
+
+def _k8_close(kern, plain):
+    """Per-tile moments within 1e-12 relative, the [4,4] within 1e-6."""
+    assert _rel(kern, plain) <= 1e-12
+    assert _rel(pallas_banded._sum_partials(kern),
+                pallas_banded._sum_partials(plain)) <= 1e-6
+    assert float(pallas_banded._sum_partials(plain)[3, 3]) > 100
+
+
+def test_icp_moments_banded_v2_kernel_at_p5_shape(gen, cuda):
+    """K8 at P5's launch (16,384 queries against 16,384 db points, blocks
+    of 2,048, a window of 2, tiles of 512): the plan's units fill the
+    card; per-tile moments within 1e-12 of the plain version's."""
+    args = _k8_args(gen, cuda, 16384, 16384, 2048, 2, 512)
+    plan = pallas_banded.moments_v2_plan(16384, 512, kernels.sm_count(cuda))
+    assert plan["units"] >= 3 * kernels.sm_count(cuda)
+    kern = pallas_banded._launch_icp_moments_banded_v2(*args)
+    plain = pallas_banded.icp_moments_banded_v2_plain(*args)
+    torch.cuda.synchronize()
+    _k8_close(kern, plain)
+
+
+@pytest.mark.parametrize("dup,grid", [(2, None), (4, 64)])
+def test_icp_moments_banded_v2_duplicate_db_points(gen, cuda, dup, grid):
+    """Every db point `dup` times over, side by side: d2 ties inside a
+    block are split across the lanes of one query (and fall across block
+    edges). Two copies add exactly in any order; four copies sit on a
+    1/64 grid, so their sums are exact in any order too."""
+    args = _k8_args(gen, cuda, 4096, 1024, 512, 2, 256, dup=dup, grid=grid)
+    assert pallas_banded.moments_v2_plan(1024, 256, kernels.sm_count(cuda)
+                                         )["lanes"] > 1
+    kern = pallas_banded._launch_icp_moments_banded_v2(*args)
+    plain = pallas_banded.icp_moments_banded_v2_plain(*args)
+    torch.cuda.synchronize()
+    _k8_close(kern, plain)
+
+
+@pytest.mark.parametrize("lanes", [1, 2, 4, 8, 16, 32])
+def test_icp_moments_banded_v2_every_lane_count(gen, cuda, lanes):
+    """K8 at each lane count its plan can pick, on duplicated db points
+    and tiles of 384 (a slice that does not divide the tile leaves dead
+    query slots); and two launches give the same bits."""
+    args = _k8_args(gen, cuda, 6144, 1536, 512, 3, 384, dup=2)
+    plan = pallas_banded.moments_v2_plan(1536, 384, kernels.sm_count(cuda),
+                                         lanes=lanes)
+    kern = pallas_banded._launch_icp_moments_banded_v2(*args, plan=plan)
+    again = pallas_banded._launch_icp_moments_banded_v2(*args, plan=plan)
+    plain = pallas_banded.icp_moments_banded_v2_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(kern, again)
+    _k8_close(kern, plain)
+
+
 @pytest.mark.parametrize("loop", ["icp_fixed_iters_banded",
                                     "icp_fixed_iters_banded_fused",
                                     "icp_fixed_iters_banded_fused_v2"])
@@ -446,6 +523,77 @@ def test_fps_kernel_matches_plain(gen, cuda, b, n, m, masked):
     one = pallas_fps.fps_pallas(pts[1], m, mask=None if mask is None
                                 else mask[1])
     assert torch.equal(one, k[1])
+
+
+def _fps_case(gen, kind, b, n):
+    """(points [b,n,3], eligible [b,n]) for the tie-heavy FPS cases."""
+    if kind == "grid":          # integer grid points: equal d2 everywhere
+        pts = gen.integers(-8, 8, (b, n, 3)).astype(np.float32)
+    elif kind == "duplicates":  # every point four times
+        pts = np.repeat(_surface_clouds(gen, b, n // 4), 4, axis=1)
+    else:
+        pts = _surface_clouds(gen, b, n)
+    elig = np.ones((b, n), bool)
+    if kind == "one_eligible":
+        elig[:] = False
+        elig[np.arange(b), gen.integers(1, n, b)] = True
+    return pts, elig
+
+
+@pytest.mark.parametrize("kind", ["grid", "duplicates", "one_eligible"])
+def test_fps_kernel_on_ties_equals_plain(gen, cuda, kind):
+    """Kernel 11 on an integer-grid cloud, on duplicated points and with
+    one eligible point: idx equal to `fps_plain` (the lowest index wins
+    every tie); kernel 10 equal to its row; two runs the same bits."""
+    pts, elig = _fps_case(gen, kind, 4, 4096)
+    pts, elig = _t(pts, cuda), _t(elig, cuda)
+    k = pallas_fps._launch_fps(pts, 512, elig)
+    again = pallas_fps._launch_fps(pts, 512, elig)
+    torch.cuda.synchronize()
+    assert torch.equal(k, again)
+    assert torch.equal(k, pallas_fps.fps_plain(pts, 512, elig))
+    one = pallas_fps.fps_pallas(pts[2], 512, mask=elig[2])
+    assert torch.equal(one, k[2])
+
+
+@pytest.mark.parametrize("threads", [32, 64, 128, 256, 512, 1024])
+@pytest.mark.parametrize("n", [128, 1000, 4096])
+def test_fps_kernel_at_every_width(gen, cuda, threads, n):
+    """Every CTA width `fps_plan` takes, on a grid cloud with a mask
+    (ties, ineligible points, ragged warps): idx equal to `fps_plain`."""
+    pts, _ = _fps_case(gen, "grid", 3, n)
+    pts = _t(pts, cuda)
+    elig = _t(gen.uniform(size=(3, n)) > 0.2, cuda)
+    plan = pallas_fps.fps_plan(3, n, 256, kernels.sm_count(cuda),
+                               threads=threads)
+    k = pallas_fps._launch_fps(pts, 256, elig, plan=plan)
+    torch.cuda.synchronize()
+    assert torch.equal(k, pallas_fps.fps_plain(pts, 256, elig)), plan
+
+
+@pytest.mark.parametrize("n,mode", [(4096, "registers"), (12000, "shared"),
+                                    (17000, "scratch"), (20000, "global")])
+def test_fps_kernel_in_every_mode(gen, cuda, n, mode):
+    """Each place the kernel keeps a cloud, at the plan's default width:
+    idx equal to `fps_plain` on masked grid clouds."""
+    pts, _ = _fps_case(gen, "grid", 2, n)
+    pts = _t(pts, cuda)
+    elig = _t(gen.uniform(size=(2, n)) > 0.1, cuda)
+    plan = pallas_fps.fps_plan(2, n, 64, kernels.sm_count(cuda))
+    assert plan["mode"] == mode
+    k = pallas_fps._launch_fps(pts, 64, elig)
+    torch.cuda.synchronize()
+    assert torch.equal(k, pallas_fps.fps_plain(pts, 64, elig))
+
+
+def test_fps_kernel_rejects_a_plan_it_cannot_run(gen, cuda):
+    """A width that cannot hold the cloud in its mode is refused at
+    launch, not run."""
+    pts = _t(_surface_clouds(gen, 1, 4096), cuda)
+    elig = torch.ones((1, 4096), dtype=torch.bool, device=cuda)
+    bad = dict(pallas_fps.fps_plan(1, 4096, 8, 132), threads=32, per=8)
+    with pytest.raises(RuntimeError):
+        pallas_fps._launch_fps(pts, 8, elig, plan=bad)
 
 
 @pytest.mark.parametrize("m,n,c,k,radius", [(512, 4096, 6, 128, 0.4),
