@@ -87,9 +87,13 @@ Phases:
      one-CTA-per-pair design's time, and that kernel's fixed cost per
      iteration; kernels 10/11 per launch shape (SA1, SA2, P9's kernel 10,
      P12's toy SA1 and SA2: `fps_plan`'s launch, us per step, the empty
-     step at the same CTA width, the bound) and K8 per P5 launch (device
-     time, `moments_v2_plan`'s units and lanes; every launch's per-tile
-     moments within 1e-12 of the plain version's);
+     step at the same CTA width, the bound), K7 and K8 per P5 launch
+     (device time, `moments_v2_plan`'s units and lanes; every launch's
+     per-tile moments within 1e-12 of the plain version's) and kernel 12
+     per launch of one P7 and one P8 forward (device time beside the
+     launch's bound, the candidates its scan tests, `ball_group_plan`'s
+     launch; every recorded launch's idx and rows equal to the plain
+     version's);
   4. one JSON line of per-kernel numbers (the 14 kernels and kernel 12's
      backward, `ball_group_vjp`, kernel 14's entry on the training
      paths), the card's line, and last the line {"ok": true, "device":
@@ -847,7 +851,8 @@ def scatter_table(pg, kernels, cases, torch):
 
 def check_banded(b, calls, torch):
     """K6, K7, K8 vs plain on every recorded launch of P5. K6: d2 and idx
-    equal. K7, K8: the moments rounded to [4,4], max |diff| <= 1e-6 of
+    equal. K7, K8: each tile's f64 moments within 1e-12 of the plain
+    version's, and the moments rounded to [4,4], max |diff| <= 1e-6 of
     max |m44| (f64 per-tile sums in another order; rounded once)."""
     out = {}
     for name, launch, plain in (
@@ -865,9 +870,8 @@ def check_banded(b, calls, torch):
                 need(torch.equal(k[0], p[0]) and torch.equal(k[1], p[1]),
                      name)
             else:
-                if name == "icp_moments_banded_v2":     # per tile
-                    rel = float((k - p).abs().max() / p.abs().max())
-                    need(rel <= 1e-12, name, "per tile", rel)
+                rel = float((k - p).abs().max() / p.abs().max())
+                need(rel <= 1e-12, name, "per tile", rel)
                 mk, mp_ = b._sum_partials(k), b._sum_partials(p)
                 rel = float((mk - mp_).abs().max() / mp_.abs().max())
                 need(rel <= 1e-6, name, rel)
@@ -892,24 +896,26 @@ def check_banded(b, calls, torch):
         bms, by = bound(byt, ops)
         out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                          bound_ms=bms, bound_by=by, library_ms=None)
-    # K8 per launch: device time (a CUDA graph of the 30 launches), its
-    # units and lanes, beside the bound of one launch
-    cl = calls["icp_moments_banded_v2"]
-    a0 = cl[0]
-    plan = b.moments_v2_plan(a0[3].shape[1], a0[9],
-                             torch.cuda.get_device_properties(0)
-                             .multi_processor_count)
-    row = out["icp_moments_banded_v2"]
-    row.update(per_launch_ms=graph_ms([
-        lambda a=a: b._launch_icp_moments_banded_v2(*a) for a in cl]) /
-        len(cl), plan=plan)
-    print(f"K8 per P5 launch: {row['per_launch_ms'] * 1e3:.2f} us device "
-          f"time ({plan['units']} units = {plan['tiles']} tiles x "
-          f"{plan['slices']} slices of {plan['slice']} queries, "
-          f"{plan['lanes']} lanes a query, {b.MOMENTS_QPT} queries a "
-          f"thread); "
-          f"bound {row['bound_ms'] / len(cl) * 1e3:.2f} us; {len(cl)} "
-          f"launches {row['ms']:.3f} ms (CUDA events)")
+    # K7 and K8 per launch (one body): device time (a CUDA graph of the 30
+    # launches), their units and lanes, beside the bound of one launch
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for name, launch, mp_of in (
+            ("icp_moments_banded", b._launch_icp_moments_banded,
+             lambda a: a[0].shape[0]),
+            ("icp_moments_banded_v2", b._launch_icp_moments_banded_v2,
+             lambda a: a[3].shape[1])):
+        cl = calls[name]
+        plan = b.moments_v2_plan(mp_of(cl[0]), cl[0][-2], sms)
+        row = out[name]
+        row.update(per_launch_ms=graph_ms([
+            lambda a=a, f=launch: f(*a) for a in cl]) / len(cl), plan=plan)
+        print(f"{'K7' if name == 'icp_moments_banded' else 'K8'} per P5 "
+              f"launch: {row['per_launch_ms'] * 1e3:.2f} us device time "
+              f"({plan['units']} units = {plan['tiles']} tiles x "
+              f"{plan['slices']} slices of {plan['slice']} queries, "
+              f"{plan['lanes']} lanes a query, {b.MOMENTS_QPT} queries a "
+              f"thread); bound {row['bound_ms'] / len(cl) * 1e3:.2f} us; "
+              f"{len(cl)} launches {row['ms']:.3f} ms (CUDA events)")
     return out
 
 
@@ -965,14 +971,14 @@ def fps_table(pf, kernels, cases, torch):
 
 def check_ball_group(bg, bq, gather, calls, torch):
     """Kernel 12 (`_launch_ball_group`) vs `ball_group_plain` on recorded
-    launches: idx equal, grouped max |err| <= 1e-6. Also vs the unfused
+    launches: idx equal, grouped rows bit-equal. Also vs the unfused
     composition group_points(packed, ball_query(...)) - centre: equal at
     every centre, except where the two distance formulas (ball_query's is
     a matmul, the kernel's an elementwise expansion) round a point within
     1e-6 of r^2 to opposite sides; such centres are counted. Returns (max
-    err, boundary centres, per-launch (ops, bytes)): ~10 flops per
-    candidate the scan must test (up to the nsample-th hit, or all N), the
-    inputs read once, grouped rows and idx written once."""
+    err, boundary centres, per-launch (ops, bytes, candidates)): ~10 flops
+    per candidate the scan must test (up to the nsample-th hit, or all N),
+    the inputs read once, grouped rows and idx written once."""
     err, boundary, work = 0.0, 0, []
     for args in calls:
         centers, packed, radius, nsample, pmask, sub_xyz = args
@@ -981,7 +987,7 @@ def check_ball_group(bg, bq, gather, calls, torch):
         torch.cuda.synchronize()
         need(torch.equal(ik, ip), "ball_group idx", tuple(packed.shape))
         e = float((gk - gp).abs().max())
-        need(e <= 1e-6, "ball_group rows", e)
+        need(torch.equal(gk, gp), "ball_group rows", e)
         err = max(err, e)
         idx_u, _ = bq.ball_query(centers, packed[..., :3], radius, nsample,
                                  pmask)
@@ -1001,8 +1007,35 @@ def check_ball_group(bg, bq, gather, calls, torch):
         full = ik[..., -1] != ik[..., 0]        # nsample hits were found
         scanned = float(torch.where(full, ik[..., -1].long() + 1,
                                     packed.shape[1]).sum())
-        work.append((10.0 * scanned, nbytes(centers, packed, pmask, gk, ik)))
+        work.append((10.0 * scanned, nbytes(centers, packed, pmask, gk, ik),
+                     scanned))
     return err, boundary, work
+
+
+def ball_group_table(bg, launches, sms):
+    """Kernel 12 per recorded launch ({name: (args, (ops, bytes,
+    candidates))}): device time (a CUDA graph of 10 launches) beside the
+    launch's own bound, the candidates its scan must test and
+    `ball_group_plan`'s launch."""
+    table = {}
+    for name, (args, (ops, byt, scanned)) in launches.items():
+        centers, packed, radius, nsample = args[:4]
+        b, m, _ = centers.shape
+        n, c = packed.shape[1], packed.shape[2]
+        plan = bg.ball_group_plan(b, m, n, c, nsample, sms)
+        ms = graph_ms([lambda a=args: bg._launch_ball_group(*a)] * 10) / 10
+        bms, by = bound(byt, ops)
+        table[name] = dict(shape=[b, m, n, c, nsample, radius], ms=ms,
+                           bound_ms=bms, bound_by=by,
+                           candidates_per_centre=scanned / (b * m),
+                           out_bytes=b * m * nsample * c * 4, plan=plan)
+        print(f"   kernel 12 {name} (B {b}, M {m}, N {n}, C {c}, K "
+              f"{nsample}, r {radius}): {ms * 1e3:.2f} us, bound "
+              f"{bms * 1e3:.2f} us ({by}), {scanned / (b * m):.0f} "
+              f"candidates a centre; {plan['ctas']} CTAs of "
+              f"{plan['threads']} threads, {plan['centres']} centres a "
+              f"CTA, {plan['mode']}, {plan['store_bytes']}-B stores")
+    return table
 
 
 def time_launches(launch, plain, calls, work):
@@ -1548,9 +1581,23 @@ def main(argv=None):
             pallas_ballgroup._launch_ball_group,
             pallas_ballgroup.ball_group_plain, r_bg["cls_msg"][:4],
             bg_work[:4]))
-    rows["ball_group"]["per_launch_ms"] = [
-        cuda_ms(lambda a=a: pallas_ballgroup._launch_ball_group(*a), reps=5)
-        for a in r_bg["cls_msg"][:4]]
+    # one P7 forward's 4 launches and one P8 forward's 2, each alone
+    n_msg = len(r_bg["cls_msg"])
+    per_launch = {f"P7 #{j}": (r_bg["cls_msg"][j], bg_work[j])
+                  for j in range(4)}
+    per_launch.update({f"P8 #{j}": (r_bg["cls_ssg"][j], bg_work[n_msg + j])
+                       for j in range(2)})
+    table = ball_group_table(
+        pallas_ballgroup, per_launch,
+        torch.cuda.get_device_properties(0).multi_processor_count)
+    rows["ball_group"]["per_launch"] = table
+    p7 = sum(table[f"P7 #{j}"]["ms"] for j in range(4))
+    p8 = sum(table[f"P8 #{j}"]["ms"] for j in range(2))
+    rows["ball_group"].update(p7_forward_device_ms=p7,
+                              p8_forward_device_ms=p8)
+    print(f"   kernel 12, one forward as device time: cls-msg {p7:.4f} ms, "
+          f"cls-ssg {p8:.4f} ms; cls-msg's 4 launches in a host loop "
+          f"{rows['ball_group']['ms']:.4f} ms (CUDA events)")
 
     # ---- kernel 5, K6-K8 against their plain versions --------------------
     w4_cut = [a[:6] + (2,) + a[7:] for a in r_k5w4.calls]   # iters cut to 2

@@ -37,20 +37,21 @@
 // multiplies, 2-3 adds and a compare (K6: 3 subtracts more) at the FP32
 // CUDA-core rate; the inputs are read once per tile from L2.
 //
-// K6 and K7 (a first, simple design): Hopper has no sequential grid, so
-// each query tile is one CTA (grid = number of tiles, 256 threads); each
-// thread holds 2 queries in registers; the window streams through shared
-// memory in chunks of 2048 columns, structure-of-arrays, so every thread
-// of a warp reads the same word (a broadcast). K7 reduces the 16 moments
-// in a fixed order (warp shuffles, then the warps' sums in warp order)
-// with no atomics, so a run is deterministic and the cross-tile sum
-// happens once, in the wrapper.
+// K6 (a first, simple design): Hopper has no sequential grid, so each
+// query tile is one CTA (grid = number of tiles, 256 threads); each thread
+// holds 2 queries in registers; the window streams through shared memory
+// in chunks of 2048 columns, structure-of-arrays, so every thread of a
+// warp reads the same word (a broadcast).
 //
-// K8 (redesigned on the whole-loop ICP kernel's body, csrc/icp_mega.cu):
-// the first design ran one 256-thread CTA per tile (32 CTAs on 132 SMs at
-// P5's shape), 2 queries a thread and five scalar shared loads a column,
-// and spent two thirds of its 472 us a launch in the shape of its tie
-// branch (tools/fps_k8_sweep.py, H100 80GB HBM3, 700 W). Now:
+// K7 and K8 share one body (banded_moments_kernel<kPosed>), redesigned on
+// the whole-loop ICP kernel's (csrc/icp_mega.cu). Their first design ran
+// one 256-thread CTA per tile (32 CTAs on 132 SMs at P5's shape), 2
+// queries a thread and five scalar shared loads a column, and spent two
+// thirds of its 472 us a launch in the shape of its tie branch
+// (tools/fps_k8_sweep.py, H100 80GB HBM3, 700 W). They differ only where
+// kPosed says: K8 (true) poses its tile inside the kernel and finds the
+// window base from the LUT; K7 (false) reads its queries as given, rows
+// of 3, and its window base from the wrapper's offsets. Otherwise:
 //  1. Units and lanes: a unit is (tile, query slice), one CTA; LANES lanes
 //     share a query (ops/pallas_banded.py:moments_v2_plan, the rule of
 //     pallas_icp_mega.unit_plan at B = 1: at least 3 units per SM where
@@ -85,9 +86,9 @@ constexpr int kQ = 2;          // queries per thread per pass
 constexpr int kChunk = 2048;   // db columns per shared-memory chunk
 constexpr int kLutBins = 1024;
 constexpr float kBig = 1e30f;
-constexpr int kMomThreads = 256;   // K8: threads a unit
-constexpr int kMomQpt = 4;         // K8: queries a thread
-constexpr int kMomChunk = 1024;    // K8: db columns a ring slot
+constexpr int kMomThreads = 256;   // K7/K8: threads a unit
+constexpr int kMomQpt = 4;         // K7/K8: queries a thread
+constexpr int kMomChunk = 1024;    // K7/K8: db columns a ring slot
 
 // ---- K6 -------------------------------------------------------------------
 
@@ -152,157 +153,15 @@ banded_nn_kernel(const float* __restrict__ q, const float* __restrict__ dbt,
   }
 }
 
-// ---- K7 association + moments -----------------------------------------------
-
-struct Window {
-  float x[kChunk], y[kChunk], z[kChunk], one[kChunk], p2[kChunk];
-};
-
-// One pass of kQ queries per thread (already transformed): associate each
-// live query in the window and add its gated moments to m (f64).
-__device__ void window_moments(const float (&xt)[kQ], const float (&yt)[kQ],
-                               const float (&zt)[kQ], const float (&qp)[kQ],
-                               const bool (&live)[kQ],
-                               const float* __restrict__ dbt4,
-                               const float* __restrict__ pen2, int Np,
-                               int base, int block, int wb, float thresh2,
-                               Window& w, double (&m)[16]) {
-  const int tid = threadIdx.x;
-  float minv[kQ], mx[kQ], my[kQ], mz[kQ], mc[kQ];
-#pragma unroll
-  for (int s = 0; s < kQ; ++s) {
-    minv[s] = kBig;
-    mx[s] = my[s] = mz[s] = 0.f;
-    mc[s] = 1.f;
-  }
-  for (int j = 0; j < wb; ++j) {
-    const int start = (base + j) * block;
-    float bmin[kQ], bx[kQ], by[kQ], bz[kQ], bc[kQ];
-#pragma unroll
-    for (int s = 0; s < kQ; ++s) {
-      bmin[s] = __int_as_float(0x7f800000);   // +inf
-      bx[s] = by[s] = bz[s] = bc[s] = 0.f;
-    }
-    for (int off = 0; off < block; off += kChunk) {
-      const int len = min(kChunk, block - off);
-      __syncthreads();
-      for (int c = tid; c < len; c += kThreads) {
-        const int g = start + off + c;
-        w.x[c] = dbt4[g];
-        w.y[c] = dbt4[Np + g];
-        w.z[c] = dbt4[2 * Np + g];
-        w.one[c] = dbt4[3 * Np + g];
-        w.p2[c] = pen2[g];
-      }
-      __syncthreads();
-      for (int c = 0; c < len; ++c) {
-        const float x = w.x[c], y = w.y[c], z = w.z[c], p2 = w.p2[c];
-#pragma unroll
-        for (int s = 0; s < kQ; ++s) {
-          const float cross = (xt[s] * x + yt[s] * y) + zt[s] * z;
-          const float d2 = p2 - 2.0f * cross;
-          if (d2 < bmin[s]) {
-            bmin[s] = d2;
-            bx[s] = x;
-            by[s] = y;
-            bz[s] = z;
-            bc[s] = w.one[c];
-          } else if (d2 == bmin[s]) {   // tie: average the block's ties
-            bx[s] += x;
-            by[s] += y;
-            bz[s] += z;
-            bc[s] += w.one[c];
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int s = 0; s < kQ; ++s)
-      if (bmin[s] < minv[s]) {   // strict: an earlier block wins
-        minv[s] = bmin[s];
-        mx[s] = bx[s];
-        my[s] = by[s];
-        mz[s] = bz[s];
-        mc[s] = bc[s];
-      }
-  }
-#pragma unroll
-  for (int s = 0; s < kQ; ++s) {
-    if (!live[s]) continue;
-    const float cnt = fmaxf(mc[s], 1.f);
-    const float hq[4] = {mx[s] / cnt, my[s] / cnt, mz[s] / cnt, 1.f};
-    const float qn = (xt[s] * xt[s] + yt[s] * yt[s]) + zt[s] * zt[s];
-    const float wt = ((minv[s] + qn) + qp[s]) < thresh2 ? 1.f : 0.f;
-    const float hp[4] = {xt[s] * wt, yt[s] * wt, zt[s] * wt, wt};
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int c = 0; c < 4; ++c)
-        m[a * 4 + c] += (double)hp[a] * (double)hq[c];
-  }
-}
-
-// Fixed-order CTA reduction of the 16 f64 moments into out[16].
-__device__ void reduce_moments(double (&m)[16], double* __restrict__ out) {
-  __shared__ double red[kWarps][16];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-#pragma unroll
-  for (int e = 0; e < 16; ++e) {
-    double v = m[e];
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-    if (lane == 0) red[warp][e] = v;
-  }
-  __syncthreads();
-  if (tid < 16) {
-    double s = 0.0;
-    for (int wi = 0; wi < kWarps; ++wi) s += red[wi][tid];
-    out[tid] = s;
-  }
-}
-
-// ---- K7 -------------------------------------------------------------------
-
-__global__ void __launch_bounds__(kThreads)
-banded_moments_kernel(const float* __restrict__ q,
-                      const float* __restrict__ qpen,
-                      const float* __restrict__ dbt4,
-                      const float* __restrict__ pen2,
-                      const int* __restrict__ offsets,
-                      double* __restrict__ out, int Np, int block, int wb,
-                      int tq, float thresh2) {
-  __shared__ Window w;
-  const int tile = blockIdx.x, tid = threadIdx.x;
-  const int base = offsets[tile];
-  double m[16];
-#pragma unroll
-  for (int e = 0; e < 16; ++e) m[e] = 0.0;
-  for (int p0 = 0; p0 < tq; p0 += kThreads * kQ) {
-    float xt[kQ], yt[kQ], zt[kQ], qp[kQ];
-    bool live[kQ];
-#pragma unroll
-    for (int s = 0; s < kQ; ++s) {
-      const int qi = p0 + s * kThreads + tid;
-      live[s] = qi < tq;
-      const size_t row = (size_t)tile * tq + (live[s] ? qi : 0);
-      xt[s] = q[row * 3];
-      yt[s] = q[row * 3 + 1];
-      zt[s] = q[row * 3 + 2];
-      qp[s] = qpen[row];
-    }
-    window_moments(xt, yt, zt, qp, live, dbt4, pen2, Np, base, block, wb,
-                   thresh2, w, m);
-  }
-  reduce_moments(m, out + (size_t)tile * 16);
-}
-
-// ---- K8 -------------------------------------------------------------------
+// ---- K7 and K8: one body ---------------------------------------------------
 
 struct MomentsArgs {
-  const float* scal;     // [16] R row-major, t, lo, hi, axis, 0
-  const int* lut;        // [kLutBins + 1]
-  const float* centers;  // [3 * Mp / tq]
-  const float* src3;     // [3, Mp]
-  const float* spen;     // [Mp]
+  const float* scal;     // K8: [16] R row-major, t, lo, hi, axis, 0
+  const int* lut;        // K8: [kLutBins + 1]
+  const float* centers;  // K8: [3 * Mp / tq]
+  const int* offsets;    // K7: [Mp / tq] each tile's first window block
+  const float* q;        // K8: [3, Mp] source columns; K7: [Mp, 3] rows
+  const float* qpen;     // [Mp] 0 valid / BIG
   const float* dbt4;     // [4, Np] x, y, z, ones
   const float* pen2t;    // [Np]
   double* out;           // [Mp / tq, 16]
@@ -340,15 +199,56 @@ __device__ void stage_moments(float4* s4, const float* dbt4,
   cp_async_commit();
 }
 
-// d2' of a db column for a transformed query, in K8's order
-__device__ __forceinline__ float k8_d2(float qx, float qy, float qz, float x,
-                                       float y, float z, float pen2) {
+// d2' of a db column for a posed query, in K7/K8's order
+__device__ __forceinline__ float moment_d2(float qx, float qy, float qz,
+                                           float x, float y, float z,
+                                           float pen2) {
   const float cross = (qx * x + qy * y) + qz * z;
   return pen2 - 2.0f * cross;
 }
 
+// The first window block of `tile`: K7's from the wrapper; K8's from the
+// tile's POSED centre (reference :332-343)
+template <bool kPosed>
+__device__ __forceinline__ int window_base(const MomentsArgs& a, int tile) {
+  if constexpr (!kPosed) {
+    return a.offsets[tile];
+  } else {
+    const float* s = a.scal;
+    const float c0 = a.centers[3 * tile], c1 = a.centers[3 * tile + 1],
+                c2 = a.centers[3 * tile + 2];
+    const float cx = s[0] * c0 + s[1] * c1 + s[2] * c2 + s[9];
+    const float cy = s[3] * c0 + s[4] * c1 + s[5] * c2 + s[10];
+    const float cz = s[6] * c0 + s[7] * c1 + s[8] * c2 + s[11];
+    const float lo = s[12], hi = s[13], axf = s[14];
+    const float val = axf < 0.5f ? cx : (axf < 1.5f ? cy : cz);
+    const float binf = (val - lo) / fmaxf(hi - lo, 1e-12f) * (float)kLutBins;
+    const int bin = (int)fminf(fmaxf(binf, 0.f), (float)kLutBins);
+    const int nb = a.Np / a.block;
+    return min(max(a.lut[bin] / a.block - a.wb / 2, 0), nb - a.wb);
+  }
+}
+
+// Query `col`: K7's as given; K8's posed as ((r0 x + r1 y) + r2 z) + t
+template <bool kPosed>
+__device__ __forceinline__ void load_query(const MomentsArgs& a, int col,
+                                           float& x, float& y, float& z) {
+  if constexpr (!kPosed) {
+    x = a.q[3 * col];
+    y = a.q[3 * col + 1];
+    z = a.q[3 * col + 2];
+  } else {
+    const float* s = a.scal;
+    const float u = a.q[col], v = a.q[a.Mp + col], w = a.q[2 * a.Mp + col];
+    x = s[0] * u + s[1] * v + s[2] * w + s[9];
+    y = s[3] * u + s[4] * v + s[5] * w + s[10];
+    z = s[6] * u + s[7] * v + s[8] * w + s[11];
+  }
+}
+
+template <bool kPosed>
 __global__ void __launch_bounds__(kMomThreads, 3)
-banded_moments_v2_kernel(const MomentsArgs a) {
+banded_moments_kernel(const MomentsArgs a) {
   constexpr int QPT = kMomQpt;
   __shared__ float4 s4[2][kMomChunk];
   __shared__ double red[kWarps][16];
@@ -358,39 +258,22 @@ banded_moments_v2_kernel(const MomentsArgs a) {
   const int ngrp = kMomThreads / L, S = ngrp * QPT;   // queries a unit
   const int spt = (a.tq + S - 1) / S;
   const int u = blockIdx.x, tile = u / spt, q0 = (u - tile * spt) * S;
-  const int nb = a.Np / a.block, W = a.wb * a.block;
+  const int W = a.wb * a.block;
   const int nch = (W + kMomChunk - 1) / kMomChunk;
   // the lanes of this thread's query group within its warp
   const unsigned gmask =
       L == 32 ? 0xffffffffu : ((1u << L) - 1u) << (lane & ~(L - 1));
   const float inf = __int_as_float(0x7f800000);
-  const float* sc = a.scal;
-  const float r00 = sc[0], r01 = sc[1], r02 = sc[2];
-  const float r10 = sc[3], r11 = sc[4], r12 = sc[5];
-  const float r20 = sc[6], r21 = sc[7], r22 = sc[8];
-  const float t0 = sc[9], t1 = sc[10], t2 = sc[11];
-  const float lo = sc[12], hi = sc[13], axf = sc[14];
   const float* dbx = a.dbt4;
   const float *dby = dbx + a.Np, *dbz = dbx + 2 * a.Np, *dbo = dbx + 3 * a.Np;
 
-  // window base from the tile's TRANSFORMED centre (reference :332-343)
-  const float c0 = a.centers[3 * tile], c1 = a.centers[3 * tile + 1],
-              c2 = a.centers[3 * tile + 2];
-  const float cx = r00 * c0 + r01 * c1 + r02 * c2 + t0;
-  const float cy = r10 * c0 + r11 * c1 + r12 * c2 + t1;
-  const float cz = r20 * c0 + r21 * c1 + r22 * c2 + t2;
-  const float val = axf < 0.5f ? cx : (axf < 1.5f ? cy : cz);
-  const float binf = (val - lo) / fmaxf(hi - lo, 1e-12f) * (float)kLutBins;
-  const int bin = (int)fminf(fmaxf(binf, 0.f), (float)kLutBins);
-  const int base = min(max(a.lut[bin] / a.block - a.wb / 2, 0), nb - a.wb);
-  const int g0 = base * a.block;
+  const int g0 = window_base<kPosed>(a, tile) * a.block;
   stage_moments(s4[0], a.dbt4, a.pen2t, a.Np, g0, min(kMomChunk, W));
 
-  // the unit's queries, transformed as ((r0 x + r1 y) + r2 z) + t. Per
-  // query and lane: the block's running minimum, the first column that
-  // reached it, and whether any column equalled the running minimum (a
-  // possible tie); per query: the best block's minimum and its matched
-  // coordinate sums and count
+  // the unit's posed queries. Per query and lane: the block's running
+  // minimum, the first column that reached it, and whether any column
+  // equalled the running minimum (a possible tie); per query: the best
+  // block's minimum and its matched coordinate sums and count
   float qx[QPT], qy[QPT], qz[QPT];
   float minv[QPT], mx[QPT], my[QPT], mz[QPT], mc[QPT];
   float bmin[QPT];
@@ -399,12 +282,8 @@ banded_moments_v2_kernel(const MomentsArgs a) {
 #pragma unroll
   for (int s = 0; s < QPT; ++s) {
     const int qi = q0 + s * ngrp + grp;
-    const int col = tile * a.tq + (qi < a.tq ? qi : 0);
-    const float x = a.src3[col], y = a.src3[a.Mp + col],
-                z = a.src3[2 * a.Mp + col];
-    qx[s] = r00 * x + r01 * y + r02 * z + t0;
-    qy[s] = r10 * x + r11 * y + r12 * z + t1;
-    qz[s] = r20 * x + r21 * y + r22 * z + t2;
+    load_query<kPosed>(a, tile * a.tq + (qi < a.tq ? qi : 0), qx[s], qy[s],
+                       qz[s]);
     minv[s] = kBig;
     mx[s] = my[s] = mz[s] = 0.f;
     mc[s] = 1.f;
@@ -432,7 +311,7 @@ banded_moments_v2_kernel(const MomentsArgs a) {
         const float4 p = p4[c - c_lo];
 #pragma unroll
         for (int s = 0; s < QPT; ++s) {
-          const float d2 = k8_d2(qx[s], qy[s], qz[s], p.x, p.y, p.z, p.w);
+          const float d2 = moment_d2(qx[s], qy[s], qz[s], p.x, p.y, p.z, p.w);
           teq[s] = teq[s] || d2 == bmin[s];
           bidx[s] = d2 < bmin[s] ? c : bidx[s];
           bmin[s] = fminf(bmin[s], d2);
@@ -463,7 +342,7 @@ banded_moments_v2_kernel(const MomentsArgs a) {
               for (int c = blk0 + sub; c < bend; c += L) {
                 const int g = g0 + c;
                 const float x = dbx[g], y = dby[g], z = dbz[g];
-                if (k8_d2(qx[s], qy[s], qz[s], x, y, z, a.pen2t[g]) == M) {
+                if (moment_d2(qx[s], qy[s], qz[s], x, y, z, a.pen2t[g]) == M) {
                   sx += x;
                   sy += y;
                   sz += z;
@@ -502,7 +381,7 @@ banded_moments_v2_kernel(const MomentsArgs a) {
     const float cnt = fmaxf(mc[s], 1.f);
     const float hq[4] = {mx[s] / cnt, my[s] / cnt, mz[s] / cnt, 1.f};
     const float qn = (qx[s] * qx[s] + qy[s] * qy[s]) + qz[s] * qz[s];
-    const float qp = a.spen[tile * a.tq + qi];
+    const float qp = a.qpen[tile * a.tq + qi];
     const float wt = ((minv[s] + qn) + qp) < a.thresh2 ? 1.f : 0.f;
     const float hp[4] = {qx[s] * wt, qy[s] * wt, qz[s] * wt, wt};
 #pragma unroll
@@ -550,6 +429,18 @@ bool bad_tiling(int Mp, int Np, int block, int wb, int tq) {
          || wb > Np / block;
 }
 
+template <bool kPosed>
+int launch_moments(const MomentsArgs& a, cudaStream_t stream) {
+  if (bad_tiling(a.Mp, a.Np, a.block, a.wb, a.tq) || a.lanes < 1
+      || a.lanes > 32 || (a.lanes & (a.lanes - 1)) != 0)
+    return (int)cudaErrorInvalidValue;
+  if (a.Mp == 0) return 0;
+  const int slice = kMomThreads / a.lanes * kMomQpt;
+  const int units = a.Mp / a.tq * ((a.tq + slice - 1) / slice);
+  banded_moments_kernel<kPosed><<<units, kMomThreads, 0, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // q [Mp,3], dbt [3,Np], pen [Np], offsets [Mp/tq] i32 -> d2 [Mp] f32,
@@ -565,26 +456,29 @@ extern "C" int pct_banded_nn(const float* q, const float* dbt,
   return (int)cudaGetLastError();
 }
 
-// q [Mp,3] transformed, qpen [Mp], dbt4 [4,Np], pen2 [Np], offsets [Mp/tq]
+// The scratch of K7 and K8: part [units,16] f64 and tickets [Mp/tq] u32,
+// zero (put back to 0), where units = (Mp/tq) * ceil(tq / (256 * 4 /
+// lanes)); lanes a power of two in [1, 32]
+// (ops/pallas_banded.py:moments_v2_plan).
+
+// K7: q [Mp,3] posed, qpen [Mp], dbt4 [4,Np], pen2 [Np], offsets [Mp/tq]
 // i32 -> out [Mp/tq,16] f64 per-tile moments.
 extern "C" int pct_banded_moments(const float* q, const float* qpen,
                                   const float* dbt4, const float* pen2,
-                                  const int* offsets, double* out, int Mp,
+                                  const int* offsets, double* out,
+                                  double* part, unsigned* tickets, int Mp,
                                   int Np, int block, int wb, int tq,
-                                  float thresh2, cudaStream_t stream) {
-  if (bad_tiling(Mp, Np, block, wb, tq)) return (int)cudaErrorInvalidValue;
-  if (Mp == 0) return 0;
-  banded_moments_kernel<<<Mp / tq, kThreads, 0, stream>>>(
-      q, qpen, dbt4, pen2, offsets, out, Np, block, wb, tq, thresh2);
-  return (int)cudaGetLastError();
+                                  int lanes, float thresh2,
+                                  cudaStream_t stream) {
+  const MomentsArgs a{nullptr, nullptr, nullptr, offsets, q, qpen, dbt4,
+                      pen2, out, part, tickets, Mp, Np, block, wb, tq,
+                      lanes, thresh2};
+  return launch_moments<false>(a, stream);
 }
 
-// scal [16] (R row-major, t, lo, hi, axis, 0), lut [1025] i32,
+// K8: scal [16] (R row-major, t, lo, hi, axis, 0), lut [1025] i32,
 // centers [3*Mp/tq], src3 [3,Mp], spen [Mp], dbt4 [4,Np], pen2t [Np]
-// -> out [Mp/tq,16] f64 per-tile moments. Scratch: part [units,16] f64
-// and tickets [Mp/tq] u32, zero (put back to 0), where units = (Mp/tq) *
-// ceil(tq / (256 * 4 / lanes)); lanes a power of two in [1, 32]
-// (ops/pallas_banded.py:moments_v2_plan).
+// -> out [Mp/tq,16] f64 per-tile moments.
 extern "C" int pct_banded_moments_v2(const float* scal, const int* lut,
                                      const float* centers, const float* src3,
                                      const float* spen, const float* dbt4,
@@ -593,14 +487,8 @@ extern "C" int pct_banded_moments_v2(const float* scal, const int* lut,
                                      int Np, int block, int wb, int tq,
                                      int lanes, float thresh2,
                                      cudaStream_t stream) {
-  if (bad_tiling(Mp, Np, block, wb, tq) || lanes < 1 || lanes > 32
-      || (lanes & (lanes - 1)) != 0)
-    return (int)cudaErrorInvalidValue;
-  if (Mp == 0) return 0;
-  const int slice = kMomThreads / lanes * kMomQpt;
-  const int units = Mp / tq * ((tq + slice - 1) / slice);
-  const MomentsArgs a{scal, lut,  centers, src3, spen, dbt4, pen2t, out,
-                      part, tickets, Mp, Np, block, wb, tq, lanes, thresh2};
-  banded_moments_v2_kernel<<<units, kMomThreads, 0, stream>>>(a);
-  return (int)cudaGetLastError();
+  const MomentsArgs a{scal, lut, centers, nullptr, src3, spen, dbt4, pen2t,
+                      out, part, tickets, Mp, Np, block, wb, tq, lanes,
+                      thresh2};
+  return launch_moments<true>(a, stream);
 }

@@ -1,7 +1,7 @@
 """Fused ball query + grouping — kernel 12 (`csrc/ballgroup.cu`), the port
 of the forward pass of the TPU kernel
 `pctpu/ops/pallas_ballgroup.py:_ballgroup_kernel` (`ball_group_pallas`,
-`ball_group_pallas_batched`).
+`ball_group_pallas_batched`), shaped by `ball_group_plan`.
 
 For each centre: the first `nsample` point indices in index order with
 d^2 < r^2 (strict, r^2 = float32(radius)^2), slots past the hit count
@@ -32,6 +32,7 @@ from typing import Optional
 import torch
 
 from pctpu_torch import kernels
+from pctpu_torch.core.cloud import round_up
 from pctpu_torch.device import f32_square
 from pctpu_torch.ops import pallas_gather
 from pctpu_torch.ops.gather import group_points
@@ -39,6 +40,18 @@ from pctpu_torch.ops.gather import group_points
 BIG = 1e30
 NO_HIT = 2**30
 CENTER_CHUNK = 128   # plain version's centre chunk (bounds [B,chunk,N])
+
+# the kernel's launch (csrc/ballgroup.cu): CTAs of THREADS_MIN to
+# THREADS_MAX threads, one warp a centre; the cloud, padded to a whole scan
+# step of SCAN_STEP candidates, staged as 16-byte (x, y, z, b2) points in
+# shared memory ("shared") or read from device memory ("global"); each
+# warp's nsample slots (4 B each) and STATIC_SMEM bytes of the kernel's
+# own in shared memory. An H100 gives a block SMEM_BLOCK bytes of shared
+# memory and an SM SMEM_SM, less CTA_RESERVED a CTA, and at most
+# SM_THREADS threads
+THREADS_MIN, THREADS_MAX, SCAN_STEP, STATIC_SMEM = 128, 1024, 128, 16
+SMEM_BLOCK, SMEM_SM, CTA_RESERVED, SM_THREADS = 232448, 233472, 1024, 2048
+MODES = ("shared", "global")
 
 
 def ball_group_plain(centers: torch.Tensor, packed: torch.Tensor,
@@ -81,28 +94,79 @@ def ball_group_plain(centers: torch.Tensor, packed: torch.Tensor,
     return grouped, idx
 
 
+def ball_group_plan(b: int, m: int, n: int, c: int, k: int, sms: int,
+                    mode: Optional[str] = None,
+                    threads: Optional[int] = None) -> Optional[dict]:
+    """The kernel's launch for `b` clouds of `n` points x `c` channels,
+    `m` centres each, nsample `k`, on a card of `sms` SMs. CTAs of
+    `threads` threads, one warp a centre: by default a warp for each of an
+    SM's share of the centres, as a power of two within [THREADS_MIN,
+    THREADS_MAX] threads (the widest CTA the card can fill ran fastest in
+    tools/k7_k12_sweep.py). Each CTA takes a chunk of `centres`
+    centres of one cloud, `ctas_per_cloud` of them, as many as fill one
+    wave of the card (the CTAs an SM holds at once by threads and shared
+    memory, times `sms`) while every warp has a centre. The cloud lives in
+    shared memory where it and the slots fit a block (`smem_bytes`), else
+    in device memory ("global"); rows go out as 16-byte stores where
+    k * c % 4 == 0, else 4-byte ones (`store_bytes`). `mode` and
+    `threads` force their choice; None for a choice the kernel cannot
+    take at this shape."""
+    if threads is None:
+        per_sm = -(-b * m // sms)
+        threads = min(THREADS_MAX,
+                      max(THREADS_MIN, 32 << (per_sm.bit_length() - 1)))
+    elif threads % 32 or not 32 <= threads <= THREADS_MAX:
+        return None
+    warps = threads // 32
+    slots = warps * k * 4 + STATIC_SMEM
+    cloud = round_up(n, SCAN_STEP) * 16
+    fits = cloud + slots <= SMEM_BLOCK
+    if mode is None:
+        mode = "shared" if fits else "global"
+    if mode not in MODES or not (fits or mode == "global") \
+            or slots > SMEM_BLOCK:
+        return None
+    smem = slots + (cloud if mode == "shared" else 0)
+    resident = max(1, min(SM_THREADS // threads,
+                          SMEM_SM // (smem + CTA_RESERVED)))
+    per_cloud = max(1, min(-(-m // warps), resident * sms // b))
+    centres = -(-m // per_cloud)
+    per_cloud = -(-m // centres)
+    return dict(threads=threads, centres=centres, ctas_per_cloud=per_cloud,
+                ctas=b * per_cloud, mode=mode, smem_bytes=smem,
+                store_bytes=16 if k * c % 4 == 0 else 4, sms=sms)
+
+
 def _launch_ball_group(centers: torch.Tensor, packed: torch.Tensor,
                        radius: float, nsample: int,
                        points_mask: Optional[torch.Tensor] = None,
-                       sub_xyz: bool = True):
+                       sub_xyz: bool = True, plan: Optional[dict] = None):
     """Launch `csrc/ballgroup.cu` on CUDA tensors (the arguments and
-    results of `ball_group_plain`); one warp per centre."""
+    results of `ball_group_plain`), shaped by `plan` (default
+    `ball_group_plan`)."""
     b, m, _ = centers.shape
     n, c = packed.shape[1], packed.shape[2]
     f32 = torch.float32
     kernels.require_cuda("ball_group", centers, packed, dtypes=(f32, f32))
     if points_mask is not None:
         kernels.require_cuda("ball_group", points_mask, dtypes=(torch.bool,))
-    out = torch.empty((b, m, nsample, c), dtype=f32, device=packed.device)
-    idx = torch.empty((b, m, nsample), dtype=torch.int32,
-                      device=packed.device)
-    fn = kernels.entry("ballgroup.cu", "pct_ball_group", n_ptr=5, n_int=6,
+    dev = packed.device
+    if plan is None:
+        plan = ball_group_plan(b, m, n, c, nsample, kernels.sm_count(dev))
+        if plan is None:
+            raise ValueError(f"ball_group: nsample {nsample} is past the "
+                             "kernel's shared memory")
+    out = torch.empty((b, m, nsample, c), dtype=f32, device=dev)
+    idx = torch.empty((b, m, nsample), dtype=torch.int32, device=dev)
+    fn = kernels.entry("ballgroup.cu", "pct_ball_group", n_ptr=5, n_int=10,
                        n_float=1)
     kernels.check(fn(centers.data_ptr(), packed.data_ptr(),
                      None if points_mask is None else points_mask.data_ptr(),
                      out.data_ptr(), idx.data_ptr(), b, m, n, c, nsample,
-                     int(sub_xyz), f32_square(radius),
-                     kernels.stream_ptr(packed.device)), "ball_group")
+                     int(sub_xyz), plan["threads"], plan["centres"],
+                     MODES.index(plan["mode"]), plan["store_bytes"] // 4,
+                     f32_square(radius), kernels.stream_ptr(dev)),
+                  "ball_group")
     return out, idx
 
 

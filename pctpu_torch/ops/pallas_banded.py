@@ -4,8 +4,8 @@ per-tile window offsets `_tile_offsets`, and three kernels, each with its
 plain PyTorch version beside it:
 
   K6 `nearest_banded`        (csrc/banded.cu `banded_nn_kernel`)
-  K7 `icp_moments_banded`    (csrc/banded.cu `banded_moments_kernel`)
-  K8 `icp_moments_banded_v2` (csrc/banded.cu `banded_moments_v2_kernel`)
+  K7 `icp_moments_banded`    (csrc/banded.cu `banded_moments_kernel<false>`)
+  K8 `icp_moments_banded_v2` (csrc/banded.cu `banded_moments_kernel<true>`)
 
 The db is sorted (stable argsort) along its widest extent axis and laid
 out as [3, Np] columns, with a bucket LUT that maps a sort-axis coordinate
@@ -16,9 +16,11 @@ K7 and K8 sum each tile's 16 moments in f64 and write one [16] partial per
 tile; the wrapper sums the partials over the tiles in f64 and rounds once
 to f32. (The TPU kernels sum in f32 in an unspecified order.) The plain
 versions do the same, so kernel and plain version agree to f32 rounding of
-one f64 sum, and an ICP loop follows one trajectory on both. K8 spreads a
-launch over the card in units of (tile, query slice) with lanes that
-share a query, shaped by `moments_v2_plan`.
+one f64 sum, and an ICP loop follows one trajectory on both. K7 and K8
+run one CUDA body and spread a launch over the card in units of (tile,
+query slice) with lanes that share a query, shaped by `moments_v2_plan`;
+K7 takes its queries posed and its window offsets from the wrapper, K8
+poses its tiles and finds their windows itself.
 """
 from __future__ import annotations
 
@@ -32,11 +34,11 @@ from pctpu_torch.core.cloud import round_up
 BIG = 1e30
 LUT_BINS = 1024
 
-# K8's CTA shape (csrc/banded.cu kMomThreads, kMomQpt): a unit holds
-# MOMENTS_THREADS * MOMENTS_QPT / lanes queries of one tile
+# K7's and K8's CTA shape (csrc/banded.cu kMomThreads, kMomQpt): a unit
+# holds MOMENTS_THREADS * MOMENTS_QPT / lanes queries of one tile
 MOMENTS_THREADS, MOMENTS_QPT, MOMENTS_MAX_LANES = 256, 4, 32
 # the least units a launch aims for per SM (the rule of
-# pallas_icp_mega.unit_plan, which K8's body follows)
+# pallas_icp_mega.unit_plan, which K7's and K8's body follows)
 MOMENTS_UNITS_PER_SM = 3
 
 _tickets: dict = {}
@@ -286,19 +288,27 @@ def icp_moments_banded_plain(q, qpen, dbt4, pen2, offsets, block: int,
 
 
 def _launch_icp_moments_banded(q, qpen, dbt4, pen2, offsets, block, wb,
-                               query_tile, thresh2):
+                               query_tile, thresh2,
+                               plan: Optional[dict] = None):
+    """Launch K7 on CUDA tensors (the layouts of
+    `icp_moments_banded_plain`) -> [ntiles,16] f64: K8's body with the
+    queries as given and the wrapper's window offsets, one CTA per unit
+    of `plan` (default `moments_v2_plan`)."""
     f32, i32 = torch.float32, torch.int32
     kernels.require_cuda("icp_moments_banded", q, qpen, dbt4, pen2, offsets,
                          dtypes=(f32, f32, f32, f32, i32))
+    dev = q.device
     mp, np_ = q.shape[0], dbt4.shape[1]
-    out = torch.empty((mp // query_tile, 16), dtype=torch.float64,
-                      device=q.device)
-    fn = kernels.entry("banded.cu", "pct_banded_moments", n_ptr=6, n_int=5,
+    if plan is None:
+        plan = moments_v2_plan(mp, query_tile, kernels.sm_count(dev))
+    out, part, tickets = _moments_scratch(dev, mp // query_tile, plan)
+    fn = kernels.entry("banded.cu", "pct_banded_moments", n_ptr=8, n_int=6,
                        n_float=1)
     kernels.check(fn(q.data_ptr(), qpen.data_ptr(), dbt4.data_ptr(),
                      pen2.data_ptr(), offsets.data_ptr(), out.data_ptr(),
-                     mp, np_, block, wb, query_tile, thresh2,
-                     kernels.stream_ptr(q.device)), "icp_moments_banded")
+                     part.data_ptr(), tickets.data_ptr(), mp, np_, block, wb,
+                     query_tile, plan["lanes"], thresh2,
+                     kernels.stream_ptr(dev)), "icp_moments_banded")
     return out
 
 
@@ -389,14 +399,15 @@ def icp_moments_banded_v2_plain(scal, lut, centers, src3, spen, dbt4, pen2t,
 
 def moments_v2_plan(mp: int, query_tile: int, sms: int,
                     lanes: Optional[int] = None) -> Optional[dict]:
-    """How one K8 launch of `mp` queries in tiles of `query_tile` spreads
-    over a card of `sms` SMs (the rule of `pallas_icp_mega.unit_plan` at
-    B = 1, with K8's CTA shape). `lanes` (a power of two up to 32) lanes
-    share a query, so a unit holds `slice` = MOMENTS_THREADS *
-    MOMENTS_QPT / lanes queries of one tile; by default `lanes` is first
-    raised until `slice` divides the tile, then until there are
-    MOMENTS_UNITS_PER_SM units per SM. A tile is `slices` units; the grid
-    is all `units`. None for lanes the kernel does not take."""
+    """How one K7 or K8 launch of `mp` queries in tiles of `query_tile`
+    spreads over a card of `sms` SMs (the rule of
+    `pallas_icp_mega.unit_plan` at B = 1, with their CTA shape). `lanes`
+    (a power of two up to 32) lanes share a query, so a unit holds
+    `slice` = MOMENTS_THREADS * MOMENTS_QPT / lanes queries of one tile;
+    by default `lanes` is first raised until `slice` divides the tile,
+    then until there are MOMENTS_UNITS_PER_SM units per SM. A tile is
+    `slices` units; the grid is all `units`. None for lanes the kernel
+    does not take."""
     slots = MOMENTS_THREADS * MOMENTS_QPT
     ntiles = mp // query_tile
 
@@ -428,14 +439,17 @@ def moments_v2_unit_queries(plan: dict, query_tile: int, unit: int) -> list:
             if q0 + s * groups + g < query_tile]
 
 
-def _ticket_buffer(device: torch.device, count: int) -> torch.Tensor:
-    """At least `count` 32-bit tickets (one per query tile) for K8 on
-    `device`, zeroed once: the kernel puts each ticket back to 0."""
-    buf = _tickets.get(device)
-    if buf is None or buf.numel() < count:
-        buf = torch.zeros(max(count, 1024), dtype=torch.int32, device=device)
-        _tickets[device] = buf
-    return buf
+def _moments_scratch(dev: torch.device, ntiles: int, plan: dict):
+    """(out [ntiles,16] f64, part [units,16] f64, tickets) for one K7 or
+    K8 launch of `plan` on `dev`. The tickets (one per query tile) are
+    zeroed once per device: the kernel puts each back to 0."""
+    buf = _tickets.get(dev)
+    if buf is None or buf.numel() < ntiles:
+        buf = torch.zeros(max(ntiles, 1024), dtype=torch.int32, device=dev)
+        _tickets[dev] = buf
+    f64 = torch.float64
+    return (torch.empty((ntiles, 16), dtype=f64, device=dev),
+            torch.empty((plan["units"], 16), dtype=f64, device=dev), buf)
 
 
 def _launch_icp_moments_banded_v2(scal, lut, centers, src3, spen, dbt4,
@@ -453,10 +467,7 @@ def _launch_icp_moments_banded_v2(scal, lut, centers, src3, spen, dbt4,
     mp, np_ = src3.shape[1], dbt4.shape[1]
     if plan is None:
         plan = moments_v2_plan(mp, query_tile, kernels.sm_count(dev))
-    out = torch.empty((mp // query_tile, 16), dtype=torch.float64,
-                      device=dev)
-    part = torch.empty((plan["units"], 16), dtype=torch.float64, device=dev)
-    tickets = _ticket_buffer(dev, mp // query_tile)
+    out, part, tickets = _moments_scratch(dev, mp // query_tile, plan)
     fn = kernels.entry("banded.cu", "pct_banded_moments_v2", n_ptr=10,
                        n_int=6, n_float=1)
     kernels.check(fn(scal.data_ptr(), lut.data_ptr(), centers.data_ptr(),

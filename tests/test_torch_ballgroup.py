@@ -99,6 +99,30 @@ def test_ball_group_batched_matches_jax(rng, c_feat):
     np.testing.assert_array_equal(grouped.numpy(), comp.numpy())
 
 
+@pytest.mark.parametrize("n,c_feat,k,radius", [(256, 2, 3, 0.5),
+                                                (20, 3, 32, 0.8)])
+def test_ball_group_plain_at_the_emission_branches_matches_jax(
+        rng, n, c_feat, k, radius):
+    """`ball_group_plain` == JAX `ball_group_pallas_batched(
+    interpret=True)` within 1e-6 where the kernel's emission branches:
+    nsample * C % 4 != 0 (5 channels, nsample 3: 4-byte stores) and fewer
+    points than nsample (20 points, nsample 32: every ball's unfilled
+    slots repeat its first hit); where nsample <= N the idx equal
+    `ball_query`'s (whose top-k needs N >= nsample)."""
+    b, m = 2, 16
+    packed = np.stack([_packed(rng, n, c_feat) for _ in range(b)])
+    centers = packed[:, :m, :3].copy()
+    ref = np.asarray(j_bgb(jnp.asarray(centers), jnp.asarray(packed),
+                           radius, k, tile=32, interpret=True))
+    grouped, idx = pallas_ballgroup.ball_group_plain(_t(centers),
+                                                     _t(packed), radius, k)
+    assert grouped.shape == (b, m, k, 3 + c_feat)
+    np.testing.assert_allclose(grouped.numpy(), ref, atol=1e-6, rtol=0)
+    if n >= k:
+        idx_q, _ = ball_query(_t(centers), _t(packed[..., :3]), radius, k)
+        np.testing.assert_array_equal(idx.numpy(), idx_q.numpy())
+
+
 def test_ball_group_mask_and_empty_ball(rng):
     """Masked points are never grouped. An empty ball follows
     `ball_query`'s contract: idx 0 in every slot, the row `packed[0]`

@@ -465,6 +465,65 @@ def test_icp_moments_banded_v2_every_lane_count(gen, cuda, lanes):
     _k8_close(kern, plain)
 
 
+def _k7_args(gen, dev, n, m, block, wb, tq, dup=1, grid=None):
+    """The argument tuple of `_launch_icp_moments_banded` for the db and
+    queries of `_k8_args` (posed by the same small translation)."""
+    db = gen.uniform(0, 10, (n // dup, 3)).astype(np.float32)
+    db[:, 0] *= 10
+    if grid:
+        db = np.round(db * grid) / grid
+    db = np.repeat(db, dup, axis=0).astype(np.float32)
+    q = (db[gen.integers(0, n, m)] + gen.normal(scale=0.05, size=(m, 3))
+         + np.float32([0.05, -0.02, 0.01])).astype(np.float32)
+    q = q[np.argsort(q[:, 0])]
+    bdb = pallas_banded.build_banded(_t(db, dev), None, block=block)
+    return pallas_banded._icp_moments_banded_args(
+        bdb, _t(q, dev), _t(np.ones(m, bool), dev), block, wb, tq, 1) + (
+        block, wb, tq, 4.0)
+
+
+def test_icp_moments_banded_kernel_at_p5_shape(gen, cuda):
+    """K7 at P5's launch (16,384 queries against 16,384 db points, blocks
+    of 2,048, a window of 2, tiles of 512), on K8's body: the plan's units
+    fill the card; per-tile moments within 1e-12 of the plain version's."""
+    args = _k7_args(gen, cuda, 16384, 16384, 2048, 2, 512)
+    plan = pallas_banded.moments_v2_plan(16384, 512, kernels.sm_count(cuda))
+    assert plan["units"] >= 3 * kernels.sm_count(cuda)
+    kern = pallas_banded._launch_icp_moments_banded(*args)
+    plain = pallas_banded.icp_moments_banded_plain(*args)
+    torch.cuda.synchronize()
+    _k8_close(kern, plain)
+
+
+@pytest.mark.parametrize("dup,grid", [(2, None), (4, 64)])
+def test_icp_moments_banded_duplicate_db_points(gen, cuda, dup, grid):
+    """K7 with every db point `dup` times over, side by side: d2 ties
+    inside a block split across the lanes of one query (and across block
+    edges), summed exactly in any order (two copies, or four on a 1/64
+    grid)."""
+    args = _k7_args(gen, cuda, 4096, 1024, 512, 2, 256, dup=dup, grid=grid)
+    kern = pallas_banded._launch_icp_moments_banded(*args)
+    plain = pallas_banded.icp_moments_banded_plain(*args)
+    torch.cuda.synchronize()
+    _k8_close(kern, plain)
+
+
+@pytest.mark.parametrize("lanes", [1, 2, 4, 8, 16, 32])
+def test_icp_moments_banded_every_lane_count(gen, cuda, lanes):
+    """K7 at each lane count its plan can pick, on duplicated db points
+    and tiles of 384 (dead query slots); two launches give the same
+    bits."""
+    args = _k7_args(gen, cuda, 6144, 1536, 512, 3, 384, dup=2)
+    plan = pallas_banded.moments_v2_plan(1536, 384, kernels.sm_count(cuda),
+                                         lanes=lanes)
+    kern = pallas_banded._launch_icp_moments_banded(*args, plan=plan)
+    again = pallas_banded._launch_icp_moments_banded(*args, plan=plan)
+    plain = pallas_banded.icp_moments_banded_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(kern, again)
+    _k8_close(kern, plain)
+
+
 @pytest.mark.parametrize("loop", ["icp_fixed_iters_banded",
                                     "icp_fixed_iters_banded_fused",
                                     "icp_fixed_iters_banded_fused_v2"])
@@ -630,6 +689,108 @@ def test_ball_group_kernel_matches_plain(gen, cuda, m, n, c, k, radius):
     comp = group_points(packed, idx)
     comp[..., :3] -= centers[:, :, None]
     assert torch.equal(gk[same], comp[same])
+
+
+# kernel 12's launches on P7 (cls-msg) and P8 (cls-ssg): (M, N, C, K, r)
+BALL_GROUP_PATHS = [(512, 4096, 6, 16, 0.1), (512, 4096, 6, 32, 0.2),
+                    (512, 4096, 6, 128, 0.4), (128, 512, 323, 32, 0.2),
+                    (512, 4096, 6, 64, 0.2), (128, 512, 131, 64, 0.4)]
+
+
+def _ball_group_case(gen, dev, b, m, n, c):
+    """(centres [b,m,3], packed [b,n,c]): surface clouds with normal
+    features; the centres are the cloud's first m points (FPS picks of
+    the cloud in the model)."""
+    xyz = _surface_clouds(gen, b, n)
+    packed = np.concatenate(
+        [xyz, gen.normal(size=(b, n, c - 3)).astype(np.float32)], axis=-1)
+    return _t(xyz[:, :m], dev), _t(packed, dev)
+
+
+def _ball_group_equal(centers, packed, radius, k, pm=None, plan=None):
+    """The kernel under `plan` (default the plan's own) against the plain
+    version: idx equal, rows bit-equal."""
+    gk, ik = pallas_ballgroup._launch_ball_group(centers, packed, radius, k,
+                                                 pm, True, plan=plan)
+    gp, ip = pallas_ballgroup.ball_group_plain(centers, packed, radius, k,
+                                               pm)
+    torch.cuda.synchronize()
+    assert torch.equal(ik, ip)
+    assert torch.equal(gk, gp)
+    return ik
+
+
+@pytest.mark.parametrize("mode", ["shared", "global"])
+@pytest.mark.parametrize("m,n,c,k,radius", BALL_GROUP_PATHS)
+def test_ball_group_kernel_at_the_paths_shapes(gen, cuda, m, n, c, k,
+                                               radius, mode):
+    """Kernel 12 at every P7 and P8 launch shape at full B 32, in both of
+    the plan's modes (the cloud staged in shared memory, or read from
+    device memory): idx and rows bit-equal to the plain version's."""
+    centers, packed = _ball_group_case(gen, cuda, 32, m, n, c)
+    plan = pallas_ballgroup.ball_group_plan(32, m, n, c, k,
+                                            kernels.sm_count(cuda),
+                                            mode=mode)
+    assert plan["store_bytes"] == 16
+    _ball_group_equal(centers, packed, radius, k, plan=plan)
+
+
+@pytest.mark.parametrize("mode", ["shared", "global"])
+@pytest.mark.parametrize("case", ["kc_not_4", "c3", "n_below_k",
+                                  "empty_balls", "all_masked",
+                                  "duplicates"])
+def test_ball_group_kernel_edge_cases(gen, cuda, case, mode):
+    """Kernel 12 against the plain version, bit for bit, in both modes:
+    nsample * C % 4 != 0 (5 channels, nsample 3: 4-byte stores); C 3 (xyz
+    only); fewer points than nsample; empty balls (centres away from the
+    cloud: idx 0, row 0 minus the centre); a fully masked cloud; every
+    point four times over (hits in ascending index across copies)."""
+    b, m, n, c, k, radius, pm = 4, 200, 1000, 6, 32, 0.3, None
+    if case == "kc_not_4":
+        c, k = 5, 3
+    elif case == "c3":
+        c = 3
+    elif case == "n_below_k":
+        n, m, k, radius = 20, 20, 32, 0.8
+    centers, packed = _ball_group_case(gen, cuda, b, m, n, c)
+    if case == "empty_balls":
+        centers[:, ::3] += 5.0
+    elif case == "all_masked":
+        pm = torch.zeros((b, n), dtype=torch.bool, device=cuda)
+    elif case == "duplicates":
+        packed = packed[:, :n // 4].repeat_interleave(4, dim=1).contiguous()
+        centers = packed[:, :m:4, :3].contiguous()
+    plan = pallas_ballgroup.ball_group_plan(b, centers.shape[1], n, c, k,
+                                            kernels.sm_count(cuda),
+                                            mode=mode)
+    assert plan["store_bytes"] == (4 if case == "kc_not_4" else 16)
+    idx = _ball_group_equal(centers, packed, radius, k, pm, plan=plan)
+    if case in ("empty_balls", "all_masked"):
+        assert bool((idx[:, ::3] if case == "empty_balls" else idx)
+                    .eq(0).all())
+    if case == "duplicates":
+        assert bool((idx[..., 1:4] - idx[..., :1] == torch.tensor(
+            [1, 2, 3], device=cuda)).all())
+
+
+def test_ball_group_kernel_rejects_a_plan_it_cannot_run(gen, cuda):
+    """16-byte stores where nsample * C % 4 != 0, a width off the warp
+    grid and a cloud past shared memory forced into it are refused at
+    launch, not run."""
+    centers, packed = _ball_group_case(gen, cuda, 2, 64, 512, 5)
+    sms = kernels.sm_count(cuda)
+    plan = pallas_ballgroup.ball_group_plan(2, 64, 512, 5, 3, sms)
+    for bad in (dict(plan, store_bytes=16), dict(plan, threads=48)):
+        with pytest.raises(RuntimeError):
+            pallas_ballgroup._launch_ball_group(centers, packed, 0.3, 3,
+                                                plan=bad)
+    big_c, big_p = _ball_group_case(gen, cuda, 1, 16, 16000, 3)
+    plan = pallas_ballgroup.ball_group_plan(1, 16, 16000, 3, 8, sms)
+    assert plan["mode"] == "global"
+    with pytest.raises(RuntimeError):
+        pallas_ballgroup._launch_ball_group(big_c, big_p, 0.1, 8,
+                                            plan=dict(plan, mode="shared"))
+    _ball_group_equal(big_c, big_p, 0.1, 8, plan=plan)
 
 
 def test_cls_ssg_forward_kernels_vs_plain(gen, cuda, monkeypatch):

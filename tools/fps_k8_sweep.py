@@ -276,10 +276,7 @@ def tree_k8(torch, kernels, pb, lib, dev):
                th2):
         mp, np_ = src3.shape[1], dbt4.shape[1]
         plan = pb.moments_v2_plan(mp, tq, sms)
-        out = torch.empty((mp // tq, 16), dtype=torch.float64, device=dev)
-        part = torch.empty((plan["units"], 16), dtype=torch.float64,
-                           device=dev)
-        tickets = pb._ticket_buffer(dev, mp // tq)
+        out, part, tickets = pb._moments_scratch(dev, mp // tq, plan)
         kernels.check(fn(scal.data_ptr(), lut.data_ptr(), centers.data_ptr(),
                          src3.data_ptr(), spen.data_ptr(), dbt4.data_ptr(),
                          pen2t.data_ptr(), out.data_ptr(), part.data_ptr(),
