@@ -79,7 +79,11 @@ Phases:
   3. on the inputs each path gave its kernels (recorded in a run before
      the counted one, or in the counted run itself), each kernel against
      its plain version with the stated tolerance, timed beside its bound
-     (P13-P15 and the kernel-9 phase: K1-K4 on every launch);
+     (P13-P15 and the kernel-9 phase: K1-K4 on every launch; K2 equal to
+     its plain version and K3 repeating bit for bit on every launch of
+     P1, P13-P15 and the kernel-9 phase, each launch's device time from a
+     CUDA graph beside the pairs it visits, those within the radius and
+     the bound);
      and each ICP path run once more with its kernels swapped for their
      plain versions: the poses agree within 1e-4 (the classifiers' logits
      within 1e-5); every recorded K4 / kernel-5 launch timed alone beside
@@ -557,51 +561,71 @@ def _flip_ok(k, p, name):
 
 
 def check_fpfh(mods, spfh_calls, wsum_calls, torch, timed=True):
-    """K2, K3 vs plain on a path's recorded inputs: bin-flip fraction <
-    2e-3, mean |diff| < 0.02, max |diff| < 15. `timed` adds the kernel's
-    and the plain version's times."""
+    """K2, K3 vs plain on a path's recorded inputs: K2's histograms and
+    counts equal to the plain version's (integer bins, scaled once); K3
+    within the bin-boundary bound of its plain version (flip fraction <
+    2e-3, mean |diff| < 0.02, max |diff| < 15: the plain version sums
+    through a matmul, the kernel in column order) and the same bits on a
+    second launch. Per launch: its device time (a CUDA graph of 10), the
+    in-band pairs it visits and the pairs within the radius; per kernel
+    the bound for this data (K2 ~10 flops an in-band pair and ~70 a pair
+    within the radius, K3 ~8 and ~68). `timed` adds the plain versions'
+    times."""
     f = mods["pallas_fpfh"]
     res = {}
+    within = []
+    for args in spfh_calls:
+        hist, cnt = f.spfh_plain(*args)
+        within.append(float(torch.where(hist[..., :11].sum(-1) > 0, cnt,
+                                        0.0).sum()))
     for name, calls in (("spfh", spfh_calls), ("wsum", wsum_calls)):
         kern, plain = getattr(f, name), getattr(f, name + "_plain")
         err = 0.0
-        visited = byt = 0
+        visited, byt, launch_us = [], 0, []
         for args in calls:
             outk, outp = kern(*args), plain(*args)
             torch.cuda.synchronize()
             if name == "spfh":
-                need(torch.equal(outk[1], outp[1]), "spfh counts")
-                outk, outp = outk[0], outp[0]
-                byt += nbytes(*args[:4], outk, outp[:, :, 0])
+                need(torch.equal(outk[0], outp[0])
+                     and torch.equal(outk[1], outp[1]), "spfh vs plain",
+                     tuple(args[0].shape))
+                byt += nbytes(*args[:4], *outk)
             else:
+                again = kern(*args)
+                torch.cuda.synchronize()
+                need(torch.equal(again, outk), "wsum repeat",
+                     tuple(args[0].shape))
+                err = max(err, _flip_ok(outk, outp, name))
                 byt += nbytes(*args[:5], outk)
-            err = max(err, _flip_ok(outk, outp, name))
             q_tile, db_tile = args[-3], args[-2]
-            visited += int(args[3].sum()) * q_tile * db_tile
-        res[name] = dict(max_abs_err=err, visited=visited, bytes=byt)
+            visited.append(int(args[3].sum()) * q_tile * db_tile)
+            launch_us.append(graph_ms([lambda a=args: kern(*a)] * 10) * 1e2)
+        per_pair, per_within = (10.0, 70.0) if name == "spfh" else (8.0, 68.0)
+        ops = per_pair * sum(visited) + per_within * sum(within)
+        bms, by = bound(byt, ops)
+        res[name] = dict(max_abs_err=err, visited=visited, within=within,
+                         bytes=byt, ops=ops, bound_ms=bms, bound_by=by,
+                         launch_us=launch_us, ms=sum(launch_us) / 1e3)
         if timed:
-            res[name].update(
-                ms=sum(cuda_ms(lambda a=a: kern(*a)) for a in calls),
-                plain_ms=sum(cuda_ms(lambda a=a: plain(*a), reps=2)
-                             for a in calls))
+            res[name]["plain_ms"] = sum(cuda_ms(lambda a=a: plain(*a), reps=2)
+                                        for a in calls)
     return res
 
 
-def fpfh_ops(mods, spfh_calls, res):
-    """Operation counts of K2/K3 for this run's data: every in-band pair
-    costs the distance test (~10 flops for K2, ~8 for K3); every pair
-    within the radius adds the Darboux angles and binning (~70 flops, K2)
-    or the 33-wide weighted row sum (~68 flops, K3)."""
-    f = mods["pallas_fpfh"]
-    within = 0.0
-    for args in spfh_calls:
-        _, cnt = f.spfh_plain(*args)
-        # cnt is max(count, 1) per query row: a row with no neighbour
-        # counts as one within pair (a slight overcount)
-        within += float(cnt.sum())
-    res["spfh"]["ops"] = 10.0 * res["spfh"]["visited"] + 70.0 * within
-    res["wsum"]["ops"] = 8.0 * res["wsum"]["visited"] + 68.0 * within
-    return within
+def fpfh_line(path, fp):
+    """One line of K2's and K3's device times on a path's launches."""
+    return (f"   K2, K3 on {path}'s {len(fp['spfh']['launch_us'])} launches "
+            "(device time, us each; bound): K2 "
+            + ", ".join(f"{t:.2f}" for t in fp["spfh"]["launch_us"])
+            + f" ({fp['spfh']['ms'] * 1e3:.2f} in all; "
+            f"{fp['spfh']['bound_ms'] * 1e3:.2f}), K3 "
+            + ", ".join(f"{t:.2f}" for t in fp["wsum"]["launch_us"])
+            + f" ({fp['wsum']['ms'] * 1e3:.2f}; "
+            f"{fp['wsum']['bound_ms'] * 1e3:.2f}); pairs "
+            + ", ".join(f"{v:,}" for v in fp["spfh"]["visited"])
+            + ", within " + ", ".join(f"{w:,.0f}" for w in fp["spfh"]["within"])
+            + "; K2 equal to plain, K3 repeats bit for bit, max |err| "
+            f"{fp['wsum']['max_abs_err']:.1e}")
 
 
 def mega_work(args):
@@ -662,6 +686,7 @@ def check_path_kernels(mods, rec, torch):
         for k in ("spfh", "wsum"):
             out[k] = dict(checked=len(rec[k].calls),
                           max_abs_err=fp[k]["max_abs_err"])
+        out["fpfh"] = fp
     if rec["icp_mega"].calls:
         errs = check_mega(mods["pallas_icp_mega"], rec["icp_mega"].calls,
                           torch)
@@ -1282,7 +1307,7 @@ def main(argv=None):
     drte, drre = se3.pose_diff_rte_rre(on_card.T.cpu(), on_cpu.T)
     print(f"   small input, kernels vs plain: max dRTE "
           f"{float(drte.max()):.2e} m, max dRRE {float(drre.max()):.2e} deg")
-    # FPFH bins may flip between kernel and plain (rsqrt, sum order), so
+    # K3 sums in column order, its plain version through a matmul, so
     # matches and RANSAC may differ slightly; ICP lands on the same pose
     need(float(drte.max()) < 0.05 and float(drre.max()) < 0.5)
 
@@ -1295,13 +1320,14 @@ def main(argv=None):
 
     rows["nn1"] = check_nn1(mods, r_nn.calls[0], torch)
     fp = check_fpfh(mods, r_spfh.calls, r_wsum.calls, torch)
-    report["fpfh_within"] = fpfh_ops(mods, r_spfh.calls, fp)
-    report["fpfh_pairs"] = {k: fp[k]["visited"] for k in ("spfh", "wsum")}
+    print(fpfh_line("P1", fp))
+    metrics["fpfh_launches"] = {"P1 register_pairs": fp}
     for name in ("spfh", "wsum"):
-        bms, by = bound(fp[name]["bytes"], fp[name]["ops"])
         rows[name] = dict(max_abs_err=fp[name]["max_abs_err"],
                           ms=fp[name]["ms"], plain_ms=fp[name]["plain_ms"],
-                          bound_ms=bms, bound_by=by, library_ms=None)
+                          bound_ms=fp[name]["bound_ms"],
+                          bound_by=fp[name]["bound_by"], library_ms=None,
+                          launch_us=fp[name]["launch_us"])
     errs = check_mega(mega, r_k4.calls, torch, retile=True)
     rows["icp_mega_batch"] = dict(max_abs_err=max(errs[:-1]),
                                   window_path_err=errs[-1], library_ms=None,
@@ -1957,6 +1983,9 @@ def main(argv=None):
           f"{fe_err:.1e}; split (s) "
           + ", ".join(f"{k} {v:.3f}" for k, v in split13.items()))
     print(kernels_line("P13", k13))
+    if "fpfh" in k13:
+        print(fpfh_line("P13", k13["fpfh"]))
+        metrics["fpfh_launches"]["P13 round 0"] = k13["fpfh"]
 
     # ---- P14 the >100-keyframe graph: sparse PCG on the card ----------------
     rng14 = np.random.default_rng(0)                    # the test's rng
@@ -2027,6 +2056,9 @@ def main(argv=None):
           f"{m14['sparse_f64_ms']:.0f} ms); split (s) "
           + ", ".join(f"{k} {v:.3f}" for k, v in split14.items()))
     print(kernels_line("P14", k14))
+    if "fpfh" in k14:
+        print(fpfh_line("P14", k14["fpfh"]))
+        metrics["fpfh_launches"]["P14 round 0"] = k14["fpfh"]
 
     # ---- P15 the registration-dataset driver on P1's pairs -----------------
     reg_dir = ROOT / "build" / "chip_smoke_reg"
@@ -2071,6 +2103,9 @@ def main(argv=None):
           f"header row), avg RTE {res15['eval']['avg_rte']:.4f} m; "
           f"{p15_s:.2f} s")
     print(kernels_line("P15", k15))
+    if "fpfh" in k15:
+        print(fpfh_line("P15", k15["fpfh"]))
+        metrics["fpfh_launches"]["P15 driver"] = k15["fpfh"]
     for name in ("nn1", "spfh", "wsum", "icp_mega_batch"):
         rows[name]["max_abs_err"] = max(
             [rows[name]["max_abs_err"]]
@@ -2140,9 +2175,8 @@ def main(argv=None):
     for name in ("spfh", "wsum"):
         rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"],
                                         fp9[name]["max_abs_err"])
-    print(f"   K2, K3 vs plain on the fused normals' FPFH: max |err| "
-          f"{fp9['spfh']['max_abs_err']:.1e}, "
-          f"{fp9['wsum']['max_abs_err']:.1e}")
+    print(fpfh_line("the kernel-9 phase", fp9))
+    metrics["fpfh_launches"]["kernel-9 phase"] = fp9
     k9 = {}
     for (case, (p_, m_, r_, kw_)), args in zip(k9_cases.items(), r9.calls):
         amat, dbmat, cent, base, nt, q_tile, db_tile, r2 = args
@@ -2276,7 +2310,8 @@ def main(argv=None):
                   seconds=time.perf_counter() - t_all,
                   note="ms/plain_ms/bound_ms/library_ms: summed over the "
                        "kernel's recorded launches in one call of its path "
-                       "(K1-K4: register_pairs; icp_mega: workload 1; "
+                       "(K1-K4: register_pairs, K2/K3 as device time; "
+                       "icp_mega: workload 1; "
                        "K6-K8: one 30-iteration call; fps_pallas_batched "
                        "and ball_group: one cls-msg forward at B 32; "
                        "fps_pallas: its 4 launches in P9; gather_rows: "

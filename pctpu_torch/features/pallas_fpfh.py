@@ -13,7 +13,9 @@ is packed once as 12 rows per point and the query side as 11 columns.
 Exact x-band pruning: on a cell-lexsorted voxel cloud the radius-r
 neighbours of a query tile lie in one contiguous x range; `_band_tables`
 gives each (batch, query tile) the [base, base + nt) db tiles to visit.
-A skipped column has |dx| > r, so it could never enter a histogram.
+A skipped column has |dx| > r, so it could never enter a histogram. The
+kernels' launch shape (CTA width, queries a warp) comes from
+`fpfh_plan`; their design is described in `csrc/fpfh.cu`.
 
 The normals pass (K9) sums each query's radius-neighbourhood moments
 [x,y,z,x2,y2,z2,xy,xz,yz,1] of coordinates shifted by its query tile's
@@ -34,6 +36,7 @@ from pctpu_torch import kernels
 from pctpu_torch.core.cloud import round_up
 from pctpu_torch.features.fpfh_dense import normals_from_moments
 from pctpu_torch.ops.eigh3 import _cross
+from pctpu_torch.ops.pallas_ballgroup import SMEM_BLOCK
 
 N_BINS = 11
 BIG = 1e30
@@ -181,7 +184,10 @@ def spfh_plain(amat, dbmat, base, nt, q_tile: int, db_tile: int,
                 h[..., k * N_BINS:(k + 1) * N_BINS] += part
             c += wf.sum(dim=2)
         c = torch.clamp_min(c, 1.0)
-        hist[:, i * q_tile:(i + 1) * q_tile] = h * (100.0 / c)[..., None]
+        # a true division, rounded once as in the kernel (`100.0 / c` is
+        # c.reciprocal() * 100, which rounds twice)
+        scale = torch.full_like(c, 100.0) / c
+        hist[:, i * q_tile:(i + 1) * q_tile] = h * scale[..., None]
         cnt[:, i * q_tile:(i + 1) * q_tile] = c
     return hist, cnt
 
@@ -227,30 +233,146 @@ def _check_fpfh_args(name, amat, dbmat, base, nt, q_tile, db_tile):
                          f"{tuple(base.shape)}, nt {tuple(nt.shape)}")
 
 
+# The K2 / K3 launch (`fpfh_plan`): the query tile the kernels take, K2's
+# CTA width and the widest CTA, the warps an SM should hold before a warp
+# takes fewer queries at once, and the shared memory of `csrc/fpfh.cu`: a
+# chunk's step table (3 x 128 floats and four words), the ring of within
+# pairs a K2 warp keeps (256 entries of 8 bytes), the ring a K3 query
+# keeps (64 of 8), and what K3 stages for a step of 32 columns a warp
+# (each column's SPFH row of 33 floats and its p, |p|^2 and pen)
+FPFH_Q_TILE = 256
+FPFH_THREADS = 256
+FPFH_MAX_THREADS = 1024
+FPFH_WARPS_PER_SM = 32
+FPFH_TABLE_BYTES = (3 * 128 + 4) * 4
+FPFH_RING = 256
+FPFH_QUERY_RING = 64
+
+
+def _fpfh_shape(b, np_, sms, kernel, threads, warp_queries):
+    warps = threads // 32
+    cta_queries = warps * warp_queries
+    if FPFH_Q_TILE % cta_queries or np_ % FPFH_Q_TILE:
+        return None
+    if kernel == "spfh":
+        smem = (cta_queries * (3 * N_BINS + 11) * 4 + FPFH_TABLE_BYTES
+                + warps * FPFH_RING * 8)
+    else:
+        smem = (FPFH_TABLE_BYTES + cta_queries * FPFH_QUERY_RING * 8
+                + warps * 32 * (3 * N_BINS + 5) * 4)
+    if smem > SMEM_BLOCK:
+        return None
+    return dict(threads=threads, warp_queries=warp_queries,
+                cta_queries=cta_queries, ctas=b * np_ // cta_queries,
+                smem_bytes=smem, sms=sms)
+
+
+def fpfh_plan(b: int, np_: int, sms: int, threads: Optional[int] = None,
+              warp_queries: Optional[int] = None) -> Optional[dict]:
+    """The launch of K2 and K3 for `b` clouds of `np_` (padded) points on
+    a card of `sms` SMs: {"spfh": shape, "wsum": shape}, each shape a dict
+    of `threads` a CTA, `warp_queries` (the queries a warp tests at once,
+    1, 2 or 4), `cta_queries` (a CTA's consecutive queries of one 256-query
+    tile: one group of `warp_queries` a warp), `ctas` and `smem_bytes`.
+    Each warp takes 4 queries at once unless that leaves fewer than
+    FPFH_WARPS_PER_SM warps an SM, then 2, then 1. K2's CTAs are 256
+    threads wide; K3's as wide as leaves a CTA for each SM (at most 1,024
+    threads), since a CTA stages the SPFH rows of its band once for all
+    its queries (a step of 32 rows a warp at a time). `threads` and
+    `warp_queries` force their choice for both; None for a shape the
+    kernels do not take."""
+    if threads is not None and (threads % 32
+                                or not 32 <= threads <= FPFH_MAX_THREADS):
+        return None
+    if warp_queries is None:
+        warp_queries = 4
+        while (warp_queries > 1
+               and b * np_ // warp_queries < FPFH_WARPS_PER_SM * sms):
+            warp_queries //= 2
+    elif warp_queries not in (1, 2, 4):
+        return None
+    wide = threads
+    if wide is None:
+        wide = FPFH_MAX_THREADS
+        while (wide > FPFH_THREADS
+               and b * np_ // (wide // 32 * warp_queries) < sms):
+            wide //= 2
+    plan = {"spfh": _fpfh_shape(b, np_, sms, "spfh", threads or FPFH_THREADS,
+                                warp_queries),
+            "wsum": _fpfh_shape(b, np_, sms, "wsum", wide, warp_queries)}
+    return None if None in plan.values() else plan
+
+
+def _fpfh_launch_args(name, amat, dbmat, base, nt, q_tile, db_tile, shape,
+                      extra):
+    f32, i32 = torch.float32, torch.int32
+    kernels.require_cuda(name, amat, dbmat, base, nt, *extra,
+                         dtypes=(f32, f32, i32, i32) + (f32,) * len(extra))
+    if q_tile != FPFH_Q_TILE or db_tile % 128:
+        raise ValueError(f"{name} kernel needs q_tile == 256 and db_tile % "
+                         f"128 == 0, got {q_tile}, {db_tile}")
+    b, np_, _ = amat.shape
+    if shape is None:
+        raise ValueError(f"{name}: no launch shape for {b} x {np_} points")
+    return b, np_
+
+
+def _launch_spfh(amat, dbmat, base, nt, q_tile: int, db_tile: int,
+                 r2: float, plan: Optional[dict] = None):
+    """Launch K2 on CUDA tensors (the arguments and results of
+    `spfh_plain`), shaped by `plan` (default `fpfh_plan`)."""
+    if plan is None:
+        plan = fpfh_plan(amat.shape[0], amat.shape[1],
+                         kernels.sm_count(amat.device))
+    shape = None if plan is None else plan["spfh"]
+    b, np_ = _fpfh_launch_args("spfh", amat, dbmat, base, nt, q_tile,
+                               db_tile, shape, ())
+    hist = torch.empty((b, np_, 3 * N_BINS), dtype=torch.float32,
+                       device=amat.device)
+    cnt = torch.empty((b, np_), dtype=torch.float32, device=amat.device)
+    fn = kernels.entry("fpfh.cu", "pct_spfh", n_ptr=6, n_int=7, n_float=1)
+    kernels.check(fn(amat.data_ptr(), dbmat.data_ptr(), base.data_ptr(),
+                     nt.data_ptr(), hist.data_ptr(), cnt.data_ptr(),
+                     b, np_, q_tile, db_tile, shape["threads"],
+                     shape["cta_queries"], shape["warp_queries"], r2,
+                     kernels.stream_ptr(amat.device)), "spfh")
+    return hist, cnt
+
+
+def _launch_wsum(amat, dbmat, base, nt, s33, q_tile: int, db_tile: int,
+                 r2: float, plan: Optional[dict] = None):
+    """Launch K3 on CUDA tensors (the arguments and result of
+    `wsum_plain`), shaped by `plan` (default `fpfh_plan`)."""
+    if plan is None:
+        plan = fpfh_plan(amat.shape[0], amat.shape[1],
+                         kernels.sm_count(amat.device))
+    shape = None if plan is None else plan["wsum"]
+    b, np_ = _fpfh_launch_args("wsum", amat, dbmat, base, nt, q_tile,
+                               db_tile, shape, (s33,))
+    if s33.data_ptr() % 16:
+        raise ValueError("wsum: s33 must be 16-byte aligned (the kernel "
+                         "stages its rows 16 bytes at a time)")
+    out = torch.empty((b, np_, 3 * N_BINS), dtype=torch.float32,
+                      device=amat.device)
+    fn = kernels.entry("fpfh.cu", "pct_wsum", n_ptr=6, n_int=7, n_float=1)
+    kernels.check(fn(amat.data_ptr(), dbmat.data_ptr(), base.data_ptr(),
+                     nt.data_ptr(), s33.data_ptr(), out.data_ptr(),
+                     b, np_, q_tile, db_tile, shape["threads"],
+                     shape["cta_queries"], shape["warp_queries"], r2,
+                     kernels.stream_ptr(amat.device)), "wsum")
+    return out
+
+
 def spfh(amat, dbmat, base, nt, q_tile: int, db_tile: int, r2: float):
     """K2 wrapper -> (hist [B,Np,33], cnt [B,Np]). CPU tensors take the
     plain version; CUDA tensors launch the kernel or raise. The kernel
-    runs one query per thread and needs q_tile == 256 and db_tile a
-    multiple of 128."""
+    needs q_tile == 256 and db_tile a multiple of 128."""
     _check_fpfh_args("spfh", amat, dbmat, base, nt, q_tile, db_tile)
     if amat.device.type == "cpu":
         return spfh_plain(amat, dbmat, base, nt, q_tile, db_tile, r2)
-    f32, i32 = torch.float32, torch.int32
-    kernels.require_cuda("spfh", amat, dbmat, base, nt,
-                         dtypes=(f32, f32, i32, i32))
-    if q_tile != 256 or db_tile % 128:
-        raise ValueError("spfh kernel needs q_tile == 256 and db_tile % 128 "
-                         f"== 0, got {q_tile}, {db_tile}")
-    b, np_, _ = amat.shape
-    hist = torch.empty((b, np_, 3 * N_BINS), dtype=f32, device=amat.device)
-    cnt = torch.empty((b, np_), dtype=f32, device=amat.device)
-    fn = kernels.entry("fpfh.cu", "pct_spfh", n_ptr=6, n_int=4, n_float=1)
-    kernels.check(fn(amat.data_ptr(), dbmat.data_ptr(), base.data_ptr(),
-                     nt.data_ptr(), hist.data_ptr(), cnt.data_ptr(),
-                     b, np_, q_tile, db_tile, r2,
-                     kernels.stream_ptr(amat.device)), "spfh")
+    out = _launch_spfh(amat, dbmat, base, nt, q_tile, db_tile, r2)
     spfh.launches += 1
-    return hist, cnt
+    return out
 
 
 def wsum(amat, dbmat, base, nt, s33, q_tile: int, db_tile: int, r2: float):
@@ -261,19 +383,7 @@ def wsum(amat, dbmat, base, nt, s33, q_tile: int, db_tile: int, r2: float):
         raise ValueError(f"wsum: bad s33 shape {tuple(s33.shape)}")
     if amat.device.type == "cpu":
         return wsum_plain(amat, dbmat, base, nt, s33, q_tile, db_tile, r2)
-    f32, i32 = torch.float32, torch.int32
-    kernels.require_cuda("wsum", amat, dbmat, base, nt, s33,
-                         dtypes=(f32, f32, i32, i32, f32))
-    if q_tile != 256 or db_tile % 128:
-        raise ValueError("wsum kernel needs q_tile == 256 and db_tile % 128 "
-                         f"== 0, got {q_tile}, {db_tile}")
-    b, np_, _ = amat.shape
-    out = torch.empty((b, np_, 3 * N_BINS), dtype=f32, device=amat.device)
-    fn = kernels.entry("fpfh.cu", "pct_wsum", n_ptr=6, n_int=4, n_float=1)
-    kernels.check(fn(amat.data_ptr(), dbmat.data_ptr(), base.data_ptr(),
-                     nt.data_ptr(), s33.data_ptr(), out.data_ptr(),
-                     b, np_, q_tile, db_tile, r2,
-                     kernels.stream_ptr(amat.device)), "wsum")
+    out = _launch_wsum(amat, dbmat, base, nt, s33, q_tile, db_tile, r2)
     wsum.launches += 1
     return out
 

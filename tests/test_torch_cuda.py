@@ -134,33 +134,107 @@ def test_wrappers_reject_bad_inputs(cuda):
         pallas_nn.nn1(q, q.cpu(), pen)
 
 
-def _fpfh_inputs(gen, dev, b=2, n=4096, cap=1024, leaf=1.0, radius=5.0):
-    g = gen.uniform(-20, 20, (b, n, 2))
+def _fpfh_inputs(gen, dev, b=2, n=4096, cap=1024, leaf=1.0, radius=5.0,
+                 half_width=20.0, case="banded"):
+    """K2/K3 operands on tilted noisy planes, voxelised and x-banded as
+    `fpfh_fused` packs them. "unbanded": every tile visits every db tile;
+    "coincident": two neighbouring voxels moved to one spot with one
+    normal, on dyadic values (d2 = 0 exactly) in every cloud; "empty":
+    the points of query tiles 1 and 3 masked (their nt is 0)."""
+    g = gen.uniform(-half_width, half_width, (b, n, 2))
     pts = np.concatenate([g, (0.1 * g[..., :1] + gen.normal(
         scale=0.3, size=(b, n, 1)))], axis=-1).astype(np.float32)
     down, _ = voxel_downsample_capped(_t(pts, dev),
                                       torch.ones((b, n), dtype=torch.bool,
                                                  device=dev), leaf, cap)
-    nrm = normals_radius_dense(down.points, down.mask, radius=2.0)
-    amat, dbmat, valid = pallas_fpfh._pack(down.points, down.mask, nrm, cap)
-    base, nt = pallas_fpfh._band_tables(amat[..., 0].contiguous(), valid,
-                                        radius, 256, 512, slack=leaf)
+    points, mask = down.points.clone(), down.mask.clone()
+    if case == "empty":
+        for tile in (1, 3):
+            mask[:, tile * 256:(tile + 1) * 256] = False
+    nrm = normals_radius_dense(points, mask, radius=2.0)
+    if case == "coincident":
+        k = cap // 3
+        points[:, k] = points[:, k + 1] = torch.round(points[:, k] * 8) / 8
+        nrm[:, k] = nrm[:, k + 1] = torch.tensor([0.0, 0.0, 1.0], device=dev)
+    amat, dbmat, valid = pallas_fpfh._pack(points, mask, nrm, cap)
+    base, nt = pallas_fpfh._band(amat[..., 0], valid, radius, 256, 512,
+                                 case != "unbanded", leaf)
+    if case == "empty":
+        assert int(nt[:, 1].max()) == int(nt[:, 3].max()) == 0
     return amat, dbmat, base, nt, radius * radius
 
 
+# P1's shape: 16 voxel clouds of 2,048, r 10, slack 2.0 (leaf 2)
+P1_FPFH = dict(b=16, n=16384, cap=2048, leaf=2.0, radius=10.0,
+               half_width=60.0)
+FPFH_CASES = ["banded", "unbanded", "coincident", "empty"]
+# every launch shape the plan takes: threads x queries a warp
+FPFH_SHAPES = [(t, wq) for t in (32, 64, 128, 256, 512, 1024)
+               for wq in (1, 2, 4)]
+
+
 def test_spfh_wsum_kernels_match_plain(gen, cuda):
-    """K2: neighbour counts equal; histograms within the bin-boundary
-    bound (flip fraction < 2e-3, mean |diff| < 0.02, max < 15). K3: the
-    same bound on the weighted sums."""
+    """K2: histograms and counts equal to the plain version's. K3: within
+    the bin-boundary bound (flip fraction < 2e-3, mean |diff| < 0.02, max
+    < 15): the plain version sums through a matmul."""
     amat, dbmat, base, nt, r2 = _fpfh_inputs(gen, cuda)
     hk, ck = pallas_fpfh.spfh(amat, dbmat, base, nt, 256, 512, r2)
     hp, cp = pallas_fpfh.spfh_plain(amat, dbmat, base, nt, 256, 512, r2)
     torch.cuda.synchronize()
-    assert torch.equal(ck, cp)
+    assert torch.equal(ck, cp) and torch.equal(hk, hp)
     wk = pallas_fpfh.wsum(amat, dbmat, base, nt, hp, 256, 512, r2)
     wp = pallas_fpfh.wsum_plain(amat, dbmat, base, nt, hp, 256, 512, r2)
-    for k, p in ((hk, hp), (wk, wp)):
-        diff = (k - p).abs()
+    diff = (wk - wp).abs()
+    assert float((diff > 0.5).float().mean()) < 2e-3
+    assert float(diff.mean()) < 0.02 and float(diff.max()) < 15.0
+
+
+def _fpfh_plans(amat):
+    b, np_ = amat.shape[0], amat.shape[1]
+    sms = kernels.sm_count(amat.device)
+    plans = [pallas_fpfh.fpfh_plan(b, np_, sms, threads=t, warp_queries=wq)
+             for t, wq in FPFH_SHAPES]
+    assert all(p is not None for p in plans)
+    return plans
+
+
+@pytest.mark.parametrize("case", FPFH_CASES)
+def test_spfh_kernel_equals_plain_at_p1_shape(gen, cuda, case):
+    """K2 at P1's shape, at every launch shape the plan takes: histograms
+    and counts equal to `spfh_plain` (integer bins, scaled once)."""
+    args = _fpfh_inputs(gen, cuda, case=case, **P1_FPFH)
+    amat, dbmat, base, nt, r2 = args
+    hp, cp = pallas_fpfh.spfh_plain(amat, dbmat, base, nt, 256, 512, r2)
+    if case == "coincident":
+        k = amat.shape[1] // 3
+        assert bool((hp[:, k].sum(-1) > 0).all())
+    for plan in [None] + _fpfh_plans(amat):
+        hk, ck = pallas_fpfh._launch_spfh(amat, dbmat, base, nt, 256, 512,
+                                          r2, plan=plan)
+        torch.cuda.synchronize()
+        assert torch.equal(ck, cp) and torch.equal(hk, hp), plan
+
+
+@pytest.mark.parametrize("case", FPFH_CASES)
+def test_wsum_kernel_within_bound_and_repeats_at_p1_shape(gen, cuda, case):
+    """K3 at P1's shape, at every launch shape the plan takes: within the
+    bin-boundary bound of `wsum_plain`, the same bits on a second launch
+    and at every shape (each sum runs in ascending column order)."""
+    amat, dbmat, base, nt, r2 = _fpfh_inputs(gen, cuda, case=case,
+                                             **P1_FPFH)
+    s33, _ = pallas_fpfh.spfh_plain(amat, dbmat, base, nt, 256, 512, r2)
+    wp = pallas_fpfh.wsum_plain(amat, dbmat, base, nt, s33, 256, 512, r2)
+    first = None
+    for plan in [None] + _fpfh_plans(amat):
+        wk = pallas_fpfh._launch_wsum(amat, dbmat, base, nt, s33, 256, 512,
+                                      r2, plan=plan)
+        again = pallas_fpfh._launch_wsum(amat, dbmat, base, nt, s33, 256,
+                                         512, r2, plan=plan)
+        torch.cuda.synchronize()
+        assert torch.equal(wk, again), plan
+        first = wk if first is None else first
+        assert torch.equal(wk, first), plan
+        diff = (wk - wp).abs()
         assert float((diff > 0.5).float().mean()) < 2e-3
         assert float(diff.mean()) < 0.02 and float(diff.max()) < 15.0
 
@@ -171,6 +245,23 @@ def test_spfh_kernel_needs_its_tiles(gen, cuda):
                         dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="q_tile"):
         pallas_fpfh.spfh(amat, dbmat, tiles, tiles, 128, 512, r2)
+
+
+def test_fpfh_wrappers_reject_mixed_devices_and_never_take_plain(
+        gen, cuda, monkeypatch):
+    amat, dbmat, base, nt, r2 = _fpfh_inputs(gen, cuda)
+    with pytest.raises(ValueError, match="CUDA device"):
+        pallas_fpfh.spfh(amat, dbmat.cpu(), base, nt, 256, 512, r2)
+    s33 = torch.zeros(amat.shape[:2] + (33,))
+    with pytest.raises(ValueError, match="CUDA device"):
+        pallas_fpfh.wsum(amat, dbmat, base, nt, s33, 256, 512, r2)
+
+    def refuse(*args):
+        raise AssertionError("plain version called on CUDA tensors")
+    monkeypatch.setattr(pallas_fpfh, "spfh_plain", refuse)
+    monkeypatch.setattr(pallas_fpfh, "wsum_plain", refuse)
+    hist, _ = pallas_fpfh.spfh(amat, dbmat, base, nt, 256, 512, r2)
+    pallas_fpfh.wsum(amat, dbmat, base, nt, hist, 256, 512, r2)
 
 
 @pytest.mark.parametrize("window_blocks", [1, 2, 8])
