@@ -91,9 +91,14 @@ Phases:
      one-CTA-per-pair design's time, and that kernel's fixed cost per
      iteration; kernels 10/11 per launch shape (SA1, SA2, P9's kernel 10,
      P12's toy SA1 and SA2: `fps_plan`'s launch, us per step, the empty
-     step at the same CTA width, the bound), K7 and K8 per P5 launch
-     (device time, `moments_v2_plan`'s units and lanes; every launch's
-     per-tile moments within 1e-12 of the plain version's) and kernel 12
+     step at the same CTA width, the bound), K6, K7 and K8 per P5 launch
+     (device time, `nearest_banded_plan`'s and `moments_v2_plan`'s units
+     and lanes; every K6 launch's d2 and idx equal to the plain
+     version's, every K7/K8 launch's per-tile moments within 1e-12 of
+     it), kernel 9 per launch (device time beside CUDA events, its
+     `moments_plan` shape, the pairs in its band, in its x-slab and
+     within the radius; within one f32 ulp of the plain version, the
+     count channel equal, a repeat bit for bit) and kernel 12
      per launch of one P7 and one P8 forward (device time beside the
      launch's bound, the candidates its scan tests, `ball_group_plan`'s
      launch; every recorded launch's idx and rows equal to the plain
@@ -529,6 +534,43 @@ def nn1_work(q, db, pen):
     return 8.0 * b_ * m * db.shape[1], nbytes(q, db, pen) + b_ * m * 8
 
 
+def banded_nn_work(args):
+    """(ops, bytes) of one K6 launch (`_launch_nearest_banded`'s args):
+    10 flops per (query, window column) pair (3 sub, 3 mul, 3 add, the
+    compare: a 1-NN tests every column of its window); the inputs read
+    once, (d2, idx) written once."""
+    q, dbt, pen, off, block, wb, tq = args
+    mp = q.shape[0]
+    return 10.0 * mp * wb * block, nbytes(q, dbt, pen, off) + mp * 8
+
+
+def moments_work(args, plain):
+    """(ops, bytes, pairs) of one K9 launch (`moments`' args; `plain` its
+    plain version's [B,Np,10] result). The pairs it needs: every pair of
+    a query and a live column (pen < 1e20) of its band whose x lies
+    within r of the query's, since no x-ordered scan can skip one (10
+    flops each: 3 mul and 2 add of q.p, |q|^2 + |p|^2, 2 q.p, the
+    difference, the penalty, the compare), and each pair within the
+    radius (the count channel) 10 adds more (f64, counted at the FP32
+    rate); the inputs read once, the result written once. `pairs`: the
+    band's pairs, the x-slab's and those within the radius."""
+    import torch
+    amat, dbmat, cent, base, nt, q_tile, db_tile, r2 = args
+    b, np_, _ = amat.shape
+    cols = torch.arange(np_, device=amat.device)
+    slab = 0
+    for i in range(b):
+        lo = base[i].long()[:, None] * db_tile
+        band = (cols >= lo) & (cols < lo + nt[i].long()[:, None] * db_tile)
+        near = ((amat[i, :, 0, None] - dbmat[i, 0][None, :]).abs()
+                <= r2 ** 0.5) & (dbmat[i, 4] < 1e20)[None, :]
+        slab += int((near.reshape(-1, q_tile, np_) & band[:, None, :]).sum())
+    within = float(plain[..., 9].double().sum())
+    pairs = dict(in_band=int(nt.sum()) * q_tile * db_tile, x_slab=slab,
+                 within=within)
+    return (10.0 * slab + 10.0 * within, nbytes(*args[:5], plain), pairs)
+
+
 def check_nn1(mods, args, torch, timed=True):
     """K1 vs plain: d2 and idx exactly equal (the kernel keeps the plain
     version's rounding order and lowest-index ties). `timed` adds the
@@ -908,37 +950,38 @@ def check_banded(b, calls, torch):
         ops = byt = 0.0
         for a in cl:
             if name == "nearest_banded":
-                q, dbt, pen, off, block, wb, tq = a
-                mp_, flops = q.shape[0], 10.0   # 3 sub, 3 mul, 3 add, cmp
-                byt += nbytes(q, dbt, pen, off) + mp_ * 8
+                o, n_ = banded_nn_work(a)
+                ops, byt = ops + o, byt + n_
             else:
                 block, wb, tq = a[-4], a[-3], a[-2]
                 mp_ = (a[0].shape[0] if name == "icp_moments_banded"
                        else a[3].shape[1])
-                flops = 8.0                     # 4 mul, 2 add, sub, cmp
                 byt += nbytes(*a[:-4]) + mp_ // tq * 128
-            ops += flops * mp_ * wb * block
+                ops += 8.0 * mp_ * wb * block   # 4 mul, 2 add, sub, cmp
         bms, by = bound(byt, ops)
         out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                          bound_ms=bms, bound_by=by, library_ms=None)
-    # K7 and K8 per launch (one body): device time (a CUDA graph of the 30
-    # launches), their units and lanes, beside the bound of one launch
+    # K6, K7 and K8 per launch (units, lanes and ring of one design):
+    # device time (a CUDA graph of the 30 launches), their units and lanes,
+    # beside the bound of one launch
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    for name, launch, mp_of in (
-            ("icp_moments_banded", b._launch_icp_moments_banded,
-             lambda a: a[0].shape[0]),
-            ("icp_moments_banded_v2", b._launch_icp_moments_banded_v2,
-             lambda a: a[3].shape[1])):
+    for name, label, launch, plan_of, mp_of in (
+            ("nearest_banded", "K6", b._launch_nearest_banded,
+             b.nearest_banded_plan, lambda a: a[0].shape[0]),
+            ("icp_moments_banded", "K7", b._launch_icp_moments_banded,
+             b.moments_v2_plan, lambda a: a[0].shape[0]),
+            ("icp_moments_banded_v2", "K8", b._launch_icp_moments_banded_v2,
+             b.moments_v2_plan, lambda a: a[3].shape[1])):
         cl = calls[name]
-        plan = b.moments_v2_plan(mp_of(cl[0]), cl[0][-2], sms)
+        plan = plan_of(mp_of(cl[0]), cl[0][-2 if label != "K6" else -1],
+                       sms)
         row = out[name]
         row.update(per_launch_ms=graph_ms([
             lambda a=a, f=launch: f(*a) for a in cl]) / len(cl), plan=plan)
-        print(f"{'K7' if name == 'icp_moments_banded' else 'K8'} per P5 "
-              f"launch: {row['per_launch_ms'] * 1e3:.2f} us device time "
-              f"({plan['units']} units = {plan['tiles']} tiles x "
-              f"{plan['slices']} slices of {plan['slice']} queries, "
-              f"{plan['lanes']} lanes a query, {b.MOMENTS_QPT} queries a "
+        print(f"{label} per P5 launch: {row['per_launch_ms'] * 1e3:.2f} us "
+              f"device time ({plan['units']} units = {plan['tiles']} tiles "
+              f"x {plan['slices']} slices of {plan['slice']} queries, "
+              f"{plan['lanes']} lanes a query, {plan['qpt']} queries a "
               f"thread); bound {row['bound_ms'] / len(cl) * 1e3:.2f} us; "
               f"{len(cl)} launches {row['ms']:.3f} ms (CUDA events)")
     return out
@@ -2184,6 +2227,10 @@ def main(argv=None):
         torch.cuda.synchronize()
         err, unequal, ulp1 = ulp_check(mk, mp_, torch)
         need(ulp1, "moments vs plain beyond one ulp", case, err)
+        # the count channel equal: no pair within the radius was pruned
+        need(torch.equal(mk[..., 9], mp_[..., 9]), "moments counts", case)
+        need(torch.equal(pallas_fpfh.moments(*args), mk), "moments repeat",
+             case)
         # normals against the dense reference default where the least
         # eigenvector is well defined: at least 3 neighbours, lambda1 >
         # 10 lambda0, and a gap lambda1 - lambda0 above 1000 eps_f32
@@ -2213,31 +2260,41 @@ def main(argv=None):
         # centroid shift gives
         gap = 1.0 - float(dots.min())
         need(gap < 1e-4, "fused vs dense normals", case, gap)
-        visited = int(nt.sum()) * q_tile * db_tile
-        within = float(mp_[..., 9].sum())
-        bms, by = bound(nbytes(*args[:5], mk), 10.0 * visited + 10.0 * within)
+        ops, byt, pairs = moments_work(args, mp_)
+        bms, by = bound(byt, ops)
+        plan = pallas_fpfh.moments_plan(
+            amat.shape[0], amat.shape[1], q_tile,
+            torch.cuda.get_device_properties(0).multi_processor_count)
         k9[case] = dict(
             shape=list(amat.shape), max_abs_err=err, unequal=unequal,
             checked_normals=int(well.sum()),
             excluded_normals=int((m_ & ~well).sum()),
-            min_dot_vs_dense=float(dots.min()),
-            ms=cuda_ms(lambda a=args: pallas_fpfh.moments(*a), reps=10),
+            min_dot_vs_dense=float(dots.min()), plan=plan,
+            ms=graph_ms([lambda a=args: pallas_fpfh.moments(*a)] * 10) / 10,
+            events_ms=cuda_ms(lambda a=args: pallas_fpfh.moments(*a),
+                              reps=10),
             plain_ms=cuda_ms(lambda a=args: pallas_fpfh.moments_plain(*a),
                              reps=2),
             dense_ms=cuda_ms(lambda: fpfh_dense.normals_radius_dense(
                 p_, m_, radius=r_), reps=5),
             fused_normals_ms=cuda_ms(lambda: pallas_fpfh.normals_radius_fused(
                 p_, m_, radius=r_, **kw_), reps=5),
-            bound_ms=bms, bound_by=by, visited_pairs=visited,
-            within_pairs=within)
+            bound_ms=bms, bound_by=by, **pairs)
         print(f"kernel 9 on {case} {list(amat.shape)}: vs plain max |err| "
               f"{err:.1e}, {unequal} of {mk.numel()} entries unequal (all "
-              f"within 1 ulp); normals vs dense max 1 - |dot| {gap:.1e} "
+              f"within 1 ulp), counts equal, a repeat bit for bit; normals "
+              f"vs dense max 1 - |dot| {gap:.1e} "
               f"(limit 1e-4, margin {1e-4 / max(gap, 1e-12):.0f}x) on "
               f"{int(well.sum())} well-conditioned points "
               f"({k9[case]['excluded_normals']} excluded); "
-              f"{k9[case]['ms']:.3f} ms (bound {bms:.4f} ms, {by}; plain "
-              f"{k9[case]['plain_ms']:.1f} ms); normals: fused "
+              f"{k9[case]['ms'] * 1e3:.2f} us device time "
+              f"({plan['ctas']} CTAs of {plan['threads']}, "
+              f"{plan['warp_queries']} queries a warp; "
+              f"{k9[case]['events_ms']:.3f} ms by CUDA events); pairs: "
+              f"{pairs['in_band']:,} in the band, {pairs['x_slab']:,} in "
+              f"the x-slab, {pairs['within']:,.0f} within; bound "
+              f"{bms * 1e3:.2f} us ({by}); plain "
+              f"{k9[case]['plain_ms']:.1f} ms; normals: fused "
               f"{k9[case]['fused_normals_ms']:.3f} ms, dense "
               f"{k9[case]['dense_ms']:.3f} ms")
     metrics["normals_fused"] = k9
@@ -2318,7 +2375,8 @@ def main(argv=None):
                        "its 2 launches in the group_points_pallas phase; "
                        "scatter_add_rows: one P10 step's launch, kernel "
                        "12's backward; moments: its 2 launches in the "
-                       "kernel-9 phase); launches: summed over the paths")
+                       "kernel-9 phase, as device time); launches: summed "
+                       "over the paths")
     print(f"total {report['seconds']:.1f} s")
     (ROOT / "build").mkdir(exist_ok=True)
     (ROOT / "build" / "chip_smoke.json").write_text(

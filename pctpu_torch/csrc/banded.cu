@@ -37,11 +37,23 @@
 // multiplies, 2-3 adds and a compare (K6: 3 subtracts more) at the FP32
 // CUDA-core rate; the inputs are read once per tile from L2.
 //
-// K6 (a first, simple design): Hopper has no sequential grid, so each
-// query tile is one CTA (grid = number of tiles, 256 threads); each thread
-// holds 2 queries in registers; the window streams through shared memory
-// in chunks of 2048 columns, structure-of-arrays, so every thread of a
-// warp reads the same word (a broadcast).
+// K6 (redesigned on K7/K8's units, lanes and ring; its first design ran
+// one 256-thread CTA per query tile, 32 CTAs on 132 SMs at P5's shape, 2
+// queries a thread, a scalar shared load a coordinate and a branch per
+// pair: 152 us a P5 launch): a unit is (tile, query slice), one CTA of
+// 256 threads; `lanes` lanes share each of a thread's 4 queries
+// (ops/pallas_banded.py:nearest_banded_plan: at least 3 units per SM where
+// the shape allows, and 4 units an SM resident, so P5's 512 units run in
+// one wave); the window streams through the two-slot cp.async ring as one
+// float4 (x, y, z, pen) a column, so one shared load serves 4 queries;
+// the scan is a compare and two selects a pair. Each lane scans every
+// lanes-th column of the window in ascending order with a strict '<', so
+// it keeps its minimum and the first of its columns at it; at the end the
+// group's lanes take the lexicographic (d2, column) minimum by xor
+// shuffles. That is the reference's rule (the lowest column wins a tie in
+// a block, an earlier block across blocks: both say the lowest column at
+// the window's minimum), and a lane that never beats 1e30 keeps (1e30, 0),
+// so a query with nothing in reach still gets (1e30, 0).
 //
 // K7 and K8 share one body (banded_moments_kernel<kPosed>), redesigned on
 // the whole-loop ICP kernel's (csrc/icp_mega.cu). Their first design ran
@@ -80,80 +92,15 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kQ = 2;          // queries per thread per pass
-constexpr int kChunk = 2048;   // db columns per shared-memory chunk
 constexpr int kLutBins = 1024;
 constexpr float kBig = 1e30f;
-constexpr int kMomThreads = 256;   // K7/K8: threads a unit
+constexpr int kMomThreads = 256;   // K6-K8: threads a unit
+constexpr int kWarps = kMomThreads / 32;
 constexpr int kMomQpt = 4;         // K7/K8: queries a thread
-constexpr int kMomChunk = 1024;    // K7/K8: db columns a ring slot
+constexpr int kNnQpt = 4;          // K6: queries a thread
+constexpr int kMomChunk = 1024;    // K6-K8: db columns a ring slot
 
-// ---- K6 -------------------------------------------------------------------
-
-__global__ void __launch_bounds__(kThreads)
-banded_nn_kernel(const float* __restrict__ q, const float* __restrict__ dbt,
-                 const float* __restrict__ pen,
-                 const int* __restrict__ offsets, float* __restrict__ d2_out,
-                 int* __restrict__ idx_out, int Np, int block, int wb,
-                 int tq) {
-  __shared__ float sx[kChunk], sy[kChunk], sz[kChunk], sp[kChunk];
-  const int tile = blockIdx.x, tid = threadIdx.x;
-  const int base = offsets[tile];
-  for (int p0 = 0; p0 < tq; p0 += kThreads * kQ) {
-    float qx[kQ], qy[kQ], qz[kQ], best[kQ];
-    int bi[kQ];
-    bool live[kQ];
-#pragma unroll
-    for (int s = 0; s < kQ; ++s) {
-      const int qi = p0 + s * kThreads + tid;
-      live[s] = qi < tq;
-      const size_t row = (size_t)tile * tq + (live[s] ? qi : 0);
-      qx[s] = q[row * 3];
-      qy[s] = q[row * 3 + 1];
-      qz[s] = q[row * 3 + 2];
-      best[s] = kBig;
-      bi[s] = 0;
-    }
-    for (int j = 0; j < wb; ++j) {
-      const int start = (base + j) * block;
-      for (int off = 0; off < block; off += kChunk) {
-        const int len = min(kChunk, block - off);
-        __syncthreads();
-        for (int c = tid; c < len; c += kThreads) {
-          const int g = start + off + c;
-          sx[c] = dbt[g];
-          sy[c] = dbt[Np + g];
-          sz[c] = dbt[2 * Np + g];
-          sp[c] = pen[g];
-        }
-        __syncthreads();
-        for (int c = 0; c < len; ++c) {
-          const float x = sx[c], y = sy[c], z = sz[c], p = sp[c];
-#pragma unroll
-          for (int s = 0; s < kQ; ++s) {
-            const float dx = qx[s] - x, dy = qy[s] - y, dz = qz[s] - z;
-            const float d2 = ((dx * dx + dy * dy) + dz * dz) + p;
-            if (d2 < best[s]) {   // strict, ascending: the lowest column wins
-              best[s] = d2;
-              bi[s] = start + off + c;
-            }
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int s = 0; s < kQ; ++s) {
-      if (!live[s]) continue;
-      const size_t row = (size_t)tile * tq + p0 + s * kThreads + tid;
-      d2_out[row] = best[s];
-      idx_out[row] = bi[s];
-    }
-  }
-}
-
-// ---- K7 and K8: one body ---------------------------------------------------
+// ---- K7's and K8's arguments; the ring K6-K8 stream their windows through
 
 struct MomentsArgs {
   const float* scal;     // K8: [16] R row-major, t, lo, hi, axis, 0
@@ -186,7 +133,8 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// db columns [g0, g0 + len) -> one ring slot of (x, y, z, pen2)
+// db columns [g0, g0 + len) -> one ring slot of (x, y, z, pen) (K7/K8:
+// pen2 = |b|^2 + pen)
 __device__ void stage_moments(float4* s4, const float* dbt4,
                               const float* pen2t, int Np, int g0, int len) {
   for (int c = threadIdx.x; c < len; c += kMomThreads) {
@@ -198,6 +146,93 @@ __device__ void stage_moments(float4* s4, const float* dbt4,
   }
   cp_async_commit();
 }
+
+// ---- K6 -------------------------------------------------------------------
+
+// One unit (tile, query slice) of a K6 launch: `lanes` lanes share each of
+// a thread's kNnQpt queries and scan every lanes-th column of the window,
+// which streams through the two-slot ring. Each lane keeps its strict '<'
+// minimum and the first of its columns that reached it; at the end the
+// group's lanes take the lexicographic (d2, column) minimum by xor.
+__global__ void __launch_bounds__(kMomThreads, 4)
+banded_nn_kernel(const float* __restrict__ q, const float* __restrict__ dbt,
+                 const float* __restrict__ pen,
+                 const int* __restrict__ offsets, float* __restrict__ d2_out,
+                 int* __restrict__ idx_out, int Np, int block, int wb,
+                 int tq, int lanes) {
+  constexpr int QPT = kNnQpt;
+  __shared__ float4 s4[2][kMomChunk];
+  const int tid = threadIdx.x;
+  const int L = lanes, sub = tid % L, grp = tid / L;
+  const int ngrp = kMomThreads / L, S = ngrp * QPT;   // queries a unit
+  const int spt = (tq + S - 1) / S;
+  const int u = blockIdx.x, tile = u / spt, q0 = (u - tile * spt) * S;
+  const int W = wb * block;
+  const int nch = (W + kMomChunk - 1) / kMomChunk;
+  const int g0 = offsets[tile] * block;
+  stage_moments(s4[0], dbt, pen, Np, g0, min(kMomChunk, W));
+
+  float qx[QPT], qy[QPT], qz[QPT], best[QPT];
+  int bi[QPT];   // the window column (from 0) that reached best
+#pragma unroll
+  for (int s = 0; s < QPT; ++s) {
+    const int qi = q0 + s * ngrp + grp;
+    const size_t row = (size_t)tile * tq + (qi < tq ? qi : 0);
+    qx[s] = q[row * 3];
+    qy[s] = q[row * 3 + 1];
+    qz[s] = q[row * 3 + 2];
+    best[s] = kBig;
+    bi[s] = 0;
+  }
+
+  for (int ch = 0; ch < nch; ++ch) {
+    const int buf = ch & 1, c_lo = ch * kMomChunk;
+    const int c_hi = min(W, c_lo + kMomChunk);
+    if (ch + 1 < nch) {   // the next chunk flies while this one runs
+      stage_moments(s4[buf ^ 1], dbt, pen, Np, g0 + c_hi,
+                    min(kMomChunk, W - c_hi));
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float4* p4 = s4[buf];
+#pragma unroll 4
+    for (int c = c_lo + sub; c < c_hi; c += L) {   // branch-free
+      const float4 p = p4[c - c_lo];
+#pragma unroll
+      for (int s = 0; s < QPT; ++s) {
+        const float dx = qx[s] - p.x, dy = qy[s] - p.y, dz = qz[s] - p.z;
+        const float d2 = ((dx * dx + dy * dy) + dz * dz) + p.w;
+        const bool lt = d2 < best[s];   // strict: a lane's first column wins
+        bi[s] = lt ? c : bi[s];
+        best[s] = lt ? d2 : best[s];
+      }
+    }
+    __syncthreads();   // this slot is refilled two chunks on
+  }
+
+#pragma unroll
+  for (int s = 0; s < QPT; ++s) {
+    float d = best[s];
+    int i = bi[s];
+    for (int o = L >> 1; o > 0; o >>= 1) {   // lexicographic (d2, column)
+      const float od = __shfl_xor_sync(0xffffffffu, d, o);
+      const int oi = __shfl_xor_sync(0xffffffffu, i, o);
+      const bool take = od < d || (od == d && oi < i);
+      d = take ? od : d;
+      i = take ? oi : i;
+    }
+    const int qi = q0 + s * ngrp + grp;
+    if (sub == 0 && qi < tq) {
+      const size_t row = (size_t)tile * tq + qi;
+      d2_out[row] = d;
+      idx_out[row] = d < kBig ? g0 + i : 0;   // (1e30, 0): nothing in reach
+    }
+  }
+}
+
+// ---- K7 and K8: one body ---------------------------------------------------
 
 // d2' of a db column for a posed query, in K7/K8's order
 __device__ __forceinline__ float moment_d2(float qx, float qy, float qz,
@@ -429,10 +464,13 @@ bool bad_tiling(int Mp, int Np, int block, int wb, int tq) {
          || wb > Np / block;
 }
 
+bool bad_lanes(int lanes) {
+  return lanes < 1 || lanes > 32 || (lanes & (lanes - 1)) != 0;
+}
+
 template <bool kPosed>
 int launch_moments(const MomentsArgs& a, cudaStream_t stream) {
-  if (bad_tiling(a.Mp, a.Np, a.block, a.wb, a.tq) || a.lanes < 1
-      || a.lanes > 32 || (a.lanes & (a.lanes - 1)) != 0)
+  if (bad_tiling(a.Mp, a.Np, a.block, a.wb, a.tq) || bad_lanes(a.lanes))
     return (int)cudaErrorInvalidValue;
   if (a.Mp == 0) return 0;
   const int slice = kMomThreads / a.lanes * kMomQpt;
@@ -444,15 +482,20 @@ int launch_moments(const MomentsArgs& a, cudaStream_t stream) {
 }  // namespace
 
 // q [Mp,3], dbt [3,Np], pen [Np], offsets [Mp/tq] i32 -> d2 [Mp] f32,
-// idx [Mp] i32 (sorted column).
+// idx [Mp] i32 (sorted column). One CTA per unit: (Mp/tq) * ceil(tq /
+// (256 * 4 / lanes)) units, lanes a power of two in [1, 32]
+// (ops/pallas_banded.py:nearest_banded_plan).
 extern "C" int pct_banded_nn(const float* q, const float* dbt,
                              const float* pen, const int* offsets, float* d2,
                              int* idx, int Mp, int Np, int block, int wb,
-                             int tq, cudaStream_t stream) {
-  if (bad_tiling(Mp, Np, block, wb, tq)) return (int)cudaErrorInvalidValue;
+                             int tq, int lanes, cudaStream_t stream) {
+  if (bad_tiling(Mp, Np, block, wb, tq) || bad_lanes(lanes))
+    return (int)cudaErrorInvalidValue;
   if (Mp == 0) return 0;
-  banded_nn_kernel<<<Mp / tq, kThreads, 0, stream>>>(q, dbt, pen, offsets, d2,
-                                                     idx, Np, block, wb, tq);
+  const int slice = kMomThreads / lanes * kNnQpt;
+  const int units = Mp / tq * ((tq + slice - 1) / slice);
+  banded_nn_kernel<<<units, kMomThreads, 0, stream>>>(
+      q, dbt, pen, offsets, d2, idx, Np, block, wb, tq, lanes);
   return (int)cudaGetLastError();
 }
 

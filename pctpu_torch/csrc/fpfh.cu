@@ -75,7 +75,7 @@
 namespace {
 
 constexpr int kQT = 256;       // the query tile (K9: the largest tile)
-constexpr int kTN = 128;       // db columns per shared-memory chunk (K9)
+constexpr int kTN = 128;       // db_tile is a multiple of it
 constexpr int kBins = 11;
 constexpr int kH = 3 * kBins;
 constexpr int kChunkSteps = 128;   // steps of 32 columns a table covers
@@ -130,17 +130,21 @@ __device__ __forceinline__ float unordered(int k) {
 }
 
 // Fills `t` for the `steps` steps of columns from `col0` (a multiple of
-// 32 columns each). All threads of the CTA call it, between barriers. A
-// column bounds nothing unless its pen is below 1e20 and its x and |p|^2
-// are numbers (a NaN never passes the test).
-__device__ void fill_table(Table& t, const float* __restrict__ dbb, int Np,
-                           int col0, int steps) {
+// 32 columns each), from the db's rows of x, |p|^2 and pen (K2/K3: rows 0,
+// 9 and 11 of [12][Np]; K9: rows 0, 3 and 4 of [5][Np]). All threads of
+// the CTA call it, between barriers. A column bounds nothing unless its
+// pen is below 1e20 and its x and |p|^2 are numbers (a NaN never passes
+// the test).
+__device__ void fill_table(Table& t, const float* __restrict__ xs,
+                           const float* __restrict__ pps,
+                           const float* __restrict__ pens, int col0,
+                           int steps) {
   const int warps = blockDim.x >> 5, warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   for (int st = warp; st < steps; st += warps) {
     const int col = col0 + st * 32 + lane;
-    const float px = __ldg(dbb + col), pp = __ldg(dbb + 9 * Np + col);
-    const bool valid = __ldg(dbb + 11 * Np + col) < kNeverWithin
+    const float px = __ldg(xs + col), pp = __ldg(pps + col);
+    const bool valid = __ldg(pens + col) < kNeverWithin
                        && px == px && pp == pp;
     const int lo = __reduce_min_sync(kFull, ordered(valid ? px : INFINITY));
     const int hi = __reduce_max_sync(kFull, ordered(valid ? px : -INFINITY));
@@ -361,7 +365,8 @@ spfh_kernel(const float* __restrict__ amat, const float* __restrict__ dbmat,
   unsigned head = 0, tail = 0;                  // warp-uniform ring counters
   for (int c0 = 0; c0 < ncols; c0 += kChunkSteps * 32) {
     const int steps = min(kChunkSteps, (ncols - c0) / 32);
-    fill_table(table, dbb, Np, start + c0, steps);
+    fill_table(table, dbb, dbb + 9 * Np, dbb + 11 * Np, start + c0,
+               steps);
     int first, last;
     visit_range(table, steps, grp.xlo, grp.xhi,
                 window(r2, grp.qq_max, table.pp), first, last);
@@ -475,7 +480,8 @@ wsum_kernel(const float* __restrict__ amat, const float* __restrict__ dbmat,
     acc[s] = 0.f, acc32[s] = 0.f, k_eff[s] = 0, head[s] = tail[s] = 0;
   for (int c0 = 0; c0 < ncols; c0 += kChunkSteps * 32) {
     const int steps = min(kChunkSteps, (ncols - c0) / 32);
-    fill_table(table, dbb, Np, start + c0, steps);
+    fill_table(table, dbb, dbb + 9 * Np, dbb + 11 * Np, start + c0,
+               steps);
     int first, last;
     visit_range(table, steps, grp.xlo, grp.xhi,
                 window(r2, grp.qq_max, table.pp), first, last);
@@ -555,100 +561,177 @@ wsum_kernel(const float* __restrict__ amat, const float* __restrict__ dbmat,
 // over the db columns of the tile's x-band:
 //   w      = (|q|^2 + |p|^2 - 2 q.p) + pen <= r^2   (self included)
 //   out[q] = sum over w of [x,y,z,x^2,y^2,z^2,xy,xz,yz,1], with
-//            (x,y,z) = p - cent[i], the tile's centroid (0 on a dead col).
+//            (x,y,z) = p - cent[i], the tile's centroid (0 on a dead col,
+//            pen > 1).
 // The TPU kernel sums through a [TQ,TN]x[TN,10] f32 dot in an unspecified
-// order; here each query sums its features in f64 and rounds once to
-// f32, as the plain version does, so the two agree to within one f32 ulp.
+// order; here each query sums its features in f64 in ascending column
+// order and rounds once to f32, as the plain version does, so the two
+// agree to within one f32 ulp.
 //
-// Bound on an H100: operations. About 10 FP32 operations per in-band
-// pair (the distance test) and 10 f64 adds per pair inside the radius;
-// the inputs (a few MB) are read from L2.
+// Bound on an H100: operations. About 10 FP32 operations on each pair
+// the test cannot skip (a live column within r of the query in x) and 10
+// f64 adds on each pair inside the radius; the inputs (a few MB) are read
+// from L2.
 //
-// Design (a first, simple one): grid (nq, B), one query per thread (the
-// block is the query tile), the in-band db staged in shared memory in
-// chunks of 128 columns. The shift is the tile's centroid, shared by
-// every thread of the block, so each column's 10 shifted features are
-// computed once per block while staging, not once per pair. A tile with
-// no valid point has nt = 0 and writes zeros.
-__global__ void __launch_bounds__(kQT)
+// Design (redesigned on K2/K3's machinery above; the first design ran one
+// query a thread, a CTA a query tile, over every column of its band, with
+// a divergent branch into the 10 f64 adds on each within pair, and tested
+// all 537M pairs of the unbanded SLAM frames): each warp takes Q (1, 2 or
+// 4) consecutive queries of one query tile (`moments_plan` in
+// features/pallas_fpfh.py shapes the launch: a CTA's queries lie in one
+// tile) and tests them against 32 band columns a step, each column's p,
+// |p|^2 and pen read once for the Q queries; a ballot gives each query's
+// within set. The step tables (`fill_table`, from K9's own rows) limit
+// each warp to the steps of its chunk that can hold a neighbour; they
+// hold for any input (pen >= 0) and prune wherever the cloud is sorted by
+// x, banded or not (the voxel clouds of the paths are). On a step with
+// any within pair, each lane computes its column's 10 shifted features
+// with the first design's f32 operations into the warp's row of shared
+// memory; then lane 5 s + k adds channels k and k + 5 of query s's within
+// columns, lowest first, into two f64 sums. A query's channel is one sum
+// in ascending column order, as in the first design, so the result equals
+// it bit for bit. A tile with no valid point has nt = 0 and writes zeros.
+constexpr int kMomLanes = 5;   // lanes a query: two channels a lane
+
+// K9's shared memory for `warps` warps: the table and each warp's step of
+// features, [32 columns][5 lanes] of (channel k, channel k + 5).
+__host__ __device__ constexpr int moments_smem(int warps) {
+  return (int)sizeof(Table) + warps * 32 * 10 * 4;
+}
+
+template <int Q>
+__global__ void __launch_bounds__(1024)
 moments_kernel(const float* __restrict__ amat,
                const float* __restrict__ dbmat,
                const float* __restrict__ cent, const int* __restrict__ base,
                const int* __restrict__ nt, float* __restrict__ out, int Np,
-               int db_tile, float r2) {
-  __shared__ float sp[5][kTN];       // x, y, z, |p|^2, pen
-  __shared__ float sf[10][kTN];      // the shifted features
-  const int b = blockIdx.y, i = blockIdx.x, tid = threadIdx.x;
-  const int nq = gridDim.x, qt = blockDim.x;
-  const int row = i * qt + tid;
-  const float* a = amat + ((size_t)b * Np + row) * 4;
-  const float q0 = a[0], q1 = a[1], q2 = a[2], qq = a[3];
-  const float* c3 = cent + ((size_t)b * nq + i) * 3;
-  const float cx = c3[0], cy = c3[1], cz = c3[2];
-  double acc[10];
-#pragma unroll
-  for (int k = 0; k < 10; ++k) acc[k] = 0.0;
+               int q_tile, int db_tile, float r2) {
+  extern __shared__ int smem[];
+  const int warps = blockDim.x >> 5, warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  Table& table = *reinterpret_cast<Table*>(smem);
+  float2* feat = reinterpret_cast<float2*>(smem + kTableWords)
+                 + warp * 32 * kMomLanes;
 
-  const int start = base[b * nq + i] * db_tile;
-  const int ncols = nt[b * nq + i] * db_tile;
-  const float* dbb = dbmat + (size_t)b * 5 * Np;
-  for (int off = 0; off < ncols; off += kTN) {
-    __syncthreads();
-    for (int c = tid; c < kTN; c += qt) {
-      const int col = start + off + c;
-      float v[5];
+  const int b = blockIdx.y, nq = Np / q_tile;
+  const int row0 = blockIdx.x * warps * Q;      // the CTA's first query
+  const int tile = row0 / q_tile;
+  const int g = row0 + warp * Q;                // the warp's first query
+  const float* a = amat + ((size_t)b * Np + g) * 4;
+  float q0[Q], q1[Q], q2[Q], qq[Q];
+  float xlo = INFINITY, xhi = -INFINITY, qq_max = 0.f;
 #pragma unroll
-      for (int r = 0; r < 5; ++r) v[r] = dbb[(size_t)r * Np + col];
-#pragma unroll
-      for (int r = 0; r < 5; ++r) sp[r][c] = v[r];
-      const bool dead = v[4] > 1.0f;
-      const float x = dead ? 0.f : v[0] - cx;
-      const float y = dead ? 0.f : v[1] - cy;
-      const float z = dead ? 0.f : v[2] - cz;
-      sf[0][c] = x;
-      sf[1][c] = y;
-      sf[2][c] = z;
-      sf[3][c] = x * x;
-      sf[4][c] = y * y;
-      sf[5][c] = z * z;
-      sf[6][c] = x * y;
-      sf[7][c] = x * z;
-      sf[8][c] = y * z;
-      sf[9][c] = dead ? 0.f : 1.f;
-    }
-    __syncthreads();
-    for (int c = 0; c < kTN; ++c) {
-      const float qp = q0 * sp[0][c] + q1 * sp[1][c] + q2 * sp[2][c];
-      const float d2 = (qq + sp[3][c]) - 2.0f * qp;
-      if (!(d2 + sp[4][c] <= r2)) continue;
-#pragma unroll
-      for (int k = 0; k < 10; ++k) acc[k] += (double)sf[k][c];
-    }
+  for (int s = 0; s < Q; ++s) {
+    q0[s] = a[s * 4], q1[s] = a[s * 4 + 1], q2[s] = a[s * 4 + 2];
+    qq[s] = a[s * 4 + 3];
+    xlo = fminf(xlo, q0[s]), xhi = fmaxf(xhi, q0[s]);
+    qq_max = fmaxf(qq_max, qq[s]);
   }
-  float* o = out + ((size_t)b * Np + row) * 10;
+  const float* c3 = cent + ((size_t)b * nq + tile) * 3;
+  const float cx = c3[0], cy = c3[1], cz = c3[2];
+  // lane 5 s + k: query s's channels k and k + 5 (lanes past 5 Q idle)
+  const int ms = lane / kMomLanes, mk = lane - ms * kMomLanes;
+  double acc0 = 0.0, acc1 = 0.0;
+
+  const int start = base[b * nq + tile] * db_tile;
+  const int ncols = nt[b * nq + tile] * db_tile;
+  const float* dbb = dbmat + (size_t)b * 5 * Np;
+  for (int c0 = 0; c0 < ncols; c0 += kChunkSteps * 32) {
+    const int steps = min(kChunkSteps, (ncols - c0) / 32);
+    fill_table(table, dbb, dbb + 3 * Np, dbb + 4 * Np, start + c0, steps);
+    int first, last;
+    visit_range(table, steps, xlo, xhi, window(r2, qq_max, table.pp), first,
+                last);
+    for (int st = first; st < last; ++st) {
+      const int col = start + c0 + st * 32 + lane;
+      const float px = __ldg(dbb + col), py = __ldg(dbb + Np + col);
+      const float pz = __ldg(dbb + 2 * Np + col);
+      const float pp = __ldg(dbb + 3 * Np + col);
+      const float pen = __ldg(dbb + 4 * Np + col);
+      unsigned mine = 0u, any = 0u;
 #pragma unroll
-  for (int k = 0; k < 10; ++k) o[k] = (float)acc[k];
+      for (int s = 0; s < Q; ++s) {
+        const float qp = q0[s] * px + q1[s] * py + q2[s] * pz;
+        const float d2 = (qq[s] + pp) - 2.0f * qp;
+        const unsigned m = __ballot_sync(kFull, d2 + pen <= r2);
+        mine = ms == s ? m : mine;
+        any |= m;
+      }
+      if (any == 0u) continue;
+      const bool dead = pen > 1.0f;
+      const float x = dead ? 0.f : px - cx;
+      const float y = dead ? 0.f : py - cy;
+      const float z = dead ? 0.f : pz - cz;
+      float2* f = feat + lane * kMomLanes;
+      f[0] = make_float2(x, z * z);
+      f[1] = make_float2(y, x * y);
+      f[2] = make_float2(z, x * z);
+      f[3] = make_float2(x * x, y * z);
+      f[4] = make_float2(y * y, dead ? 0.f : 1.f);
+      __syncwarp();
+      const float2* fk = feat + mk;
+      while (mine != 0u) {                      // ascending columns
+        const float2 v = fk[(__ffs(mine) - 1) * kMomLanes];
+        mine &= mine - 1u;
+        acc0 += (double)v.x;
+        acc1 += (double)v.y;
+      }
+      __syncwarp();                             // the row is used up
+    }
+    __syncthreads();                            // the table is used up
+  }
+  if (ms < Q) {
+    float* o = out + ((size_t)b * Np + g + ms) * 10;
+    o[mk] = (float)acc0;
+    o[mk + kMomLanes] = (float)acc1;
+  }
+}
+
+// The K9 launch shape: `threads` a CTA (a multiple of 32, at most 1024),
+// `warp_queries` (1, 2 or 4) queries a warp, and `cta_queries` = threads /
+// 32 * warp_queries dividing q_tile (a multiple of 32 up to 256).
+bool bad_moments_shape(int Np, int q_tile, int db_tile, int threads,
+                       int cta_queries, int warp_queries) {
+  return q_tile <= 0 || q_tile % 32 != 0 || q_tile > kQT || db_tile <= 0
+         || db_tile % kTN != 0 || Np % q_tile != 0 || threads % 32 != 0
+         || threads < 32 || threads > 1024
+         || !(warp_queries == 1 || warp_queries == 2 || warp_queries == 4)
+         || cta_queries != threads / 32 * warp_queries
+         || q_tile % cta_queries != 0;
+}
+
+template <int Q>
+int launch_moments(const float* amat, const float* dbmat, const float* cent,
+                   const int* base, const int* nt, float* out, int B, int Np,
+                   int q_tile, int db_tile, int threads, float r2,
+                   cudaStream_t stream) {
+  dim3 grid(Np / (threads / 32 * Q), B);
+  moments_kernel<Q><<<grid, threads, moments_smem(threads / 32), stream>>>(
+      amat, dbmat, cent, base, nt, out, Np, q_tile, db_tile, r2);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // amat [B,Np,4], dbmat [B,5,Np], cent [B,nq,3], base/nt [B,nq] i32 ->
-// out [B,Np,10]. nq = Np / q_tile; needs q_tile % 32 == 0, q_tile <= 256
-// and db_tile % 128 == 0.
+// out [B,Np,10]. nq = Np / q_tile; needs q_tile % 32 == 0, q_tile <= 256,
+// db_tile % 128 == 0 and a launch shape `bad_moments_shape` takes
+// (features/pallas_fpfh.py:moments_plan).
 extern "C" int pct_moments(const float* amat, const float* dbmat,
                            const float* cent, const int* base, const int* nt,
                            float* out, int B, int Np, int q_tile, int db_tile,
+                           int threads, int cta_queries, int warp_queries,
                            float r2, cudaStream_t stream) {
-  if (q_tile <= 0 || q_tile % 32 != 0 || q_tile > kQT || db_tile % kTN != 0
-      || Np % q_tile != 0)
+  if (bad_moments_shape(Np, q_tile, db_tile, threads, cta_queries,
+                        warp_queries))
     return (int)cudaErrorInvalidValue;
   if (B <= 0 || Np <= 0) return 0;
-  dim3 grid(Np / q_tile, B);
-  moments_kernel<<<grid, q_tile, 0, stream>>>(amat, dbmat, cent, base, nt,
-                                              out, Np, db_tile, r2);
-  return (int)cudaGetLastError();
+  auto launch = warp_queries == 4   ? launch_moments<4>
+                : warp_queries == 2 ? launch_moments<2>
+                                    : launch_moments<1>;
+  return launch(amat, dbmat, cent, base, nt, out, B, Np, q_tile, db_tile,
+                threads, r2, stream);
 }
-
 
 namespace {
 

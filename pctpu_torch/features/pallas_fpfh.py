@@ -427,13 +427,86 @@ def moments_plain(amat, dbmat, cent, base, nt, q_tile: int, db_tile: int,
     return out
 
 
+def moments_plan(b: int, np_: int, q_tile: int, sms: int,
+                 threads: Optional[int] = None,
+                 warp_queries: Optional[int] = None) -> Optional[dict]:
+    """The launch of K9 for `b` clouds of `np_` (padded) points in query
+    tiles of `q_tile` on a card of `sms` SMs: a dict of `threads` a CTA,
+    `warp_queries` (the queries a warp tests at once, 1, 2 or 4),
+    `cta_queries` (a CTA's consecutive queries, one group of
+    `warp_queries` a warp, dividing the tile), `ctas` and `smem_bytes`.
+    Each warp takes 4 queries at once unless that leaves fewer than
+    FPFH_WARPS_PER_SM warps an SM, then 2, then 1 (`fpfh_plan`'s rule).
+    The CTAs are as wide as divides the tile and leaves a CTA for each SM
+    (at most 1,024 threads, at least 256 unless the tile needs fewer),
+    since a CTA builds its band's step tables once for all its queries.
+    `threads` and `warp_queries` force their choice; None for a shape the
+    kernel does not take."""
+    if q_tile <= 0 or q_tile % 32 or q_tile > FPFH_Q_TILE or np_ % q_tile:
+        return None
+    if warp_queries is None:
+        warp_queries = 4
+        while (warp_queries > 1
+               and b * np_ // warp_queries < FPFH_WARPS_PER_SM * sms):
+            warp_queries //= 2
+    elif warp_queries not in (1, 2, 4):
+        return None
+
+    def cta_queries(t):
+        return t // 32 * warp_queries
+    if threads is None:
+        threads = FPFH_MAX_THREADS
+        while threads > 32 and (
+                q_tile % cta_queries(threads)
+                or (threads > FPFH_THREADS
+                    and b * np_ // cta_queries(threads) < sms)):
+            threads //= 2
+    elif (threads % 32 or not 32 <= threads <= FPFH_MAX_THREADS
+          or q_tile % cta_queries(threads)):
+        return None
+    cq = cta_queries(threads)
+    return dict(threads=threads, warp_queries=warp_queries, cta_queries=cq,
+                ctas=b * np_ // cq,
+                smem_bytes=FPFH_TABLE_BYTES + threads // 32 * 32 * 10 * 4,
+                sms=sms)
+
+
+def _launch_moments(amat, dbmat, cent, base, nt, q_tile: int, db_tile: int,
+                    r2: float, plan: Optional[dict] = None):
+    """Launch K9 on CUDA tensors (the arguments and result of
+    `moments_plain`), shaped by `plan` (default `moments_plan`)."""
+    f32, i32 = torch.float32, torch.int32
+    kernels.require_cuda("moments", amat, dbmat, cent, base, nt,
+                         dtypes=(f32, f32, f32, i32, i32))
+    if q_tile % 32 or q_tile > 256 or db_tile % 128:
+        raise ValueError("moments kernel needs q_tile % 32 == 0, q_tile <= "
+                         f"256 and db_tile % 128 == 0, got {q_tile}, "
+                         f"{db_tile}")
+    b, np_, _ = amat.shape
+    if plan is None:
+        plan = moments_plan(b, np_, q_tile, kernels.sm_count(amat.device))
+    if plan is None:
+        raise ValueError(f"moments: no launch shape for {b} x {np_} points "
+                         f"in tiles of {q_tile}")
+    out = torch.empty((b, np_, 10), dtype=f32, device=amat.device)
+    fn = kernels.entry("fpfh.cu", "pct_moments", n_ptr=6, n_int=7, n_float=1)
+    kernels.check(fn(amat.data_ptr(), dbmat.data_ptr(), cent.data_ptr(),
+                     base.data_ptr(), nt.data_ptr(), out.data_ptr(), b, np_,
+                     q_tile, db_tile, plan["threads"], plan["cta_queries"],
+                     plan["warp_queries"], r2,
+                     kernels.stream_ptr(amat.device)), "moments")
+    return out
+
+
 def moments(amat, dbmat, cent, base, nt, q_tile: int, db_tile: int,
             r2: float):
     """K9 wrapper: amat [B,Np,4] (q, |q|^2), dbmat [B,5,Np] (p^T, |p|^2,
-    pen), cent [B,nq,3], base/nt [B,nq] int32 -> [B,Np,10] f32. CPU
-    tensors take the plain version; CUDA tensors launch the kernel or
-    raise. The kernel runs one query per thread and needs q_tile a
-    multiple of 32 up to 256 and db_tile a multiple of 128."""
+    pen: 0 valid, 1e30 masked), cent [B,nq,3], base/nt [B,nq] int32 ->
+    [B,Np,10] f32. CPU tensors take the plain version; CUDA tensors launch
+    the kernel or raise. The kernel tests a warp's queries against 32
+    columns a step, visits only the steps of the band that can hold a
+    neighbour, and needs q_tile a multiple of 32 up to 256 and db_tile a
+    multiple of 128."""
     b, np_, c = amat.shape
     nq = np_ // q_tile if q_tile else 0
     if (c != 4 or dbmat.shape != (b, 5, np_) or np_ % q_tile
@@ -445,19 +518,7 @@ def moments(amat, dbmat, cent, base, nt, q_tile: int, db_tile: int,
                          f"nt {tuple(nt.shape)}")
     if amat.device.type == "cpu":
         return moments_plain(amat, dbmat, cent, base, nt, q_tile, db_tile, r2)
-    f32, i32 = torch.float32, torch.int32
-    kernels.require_cuda("moments", amat, dbmat, cent, base, nt,
-                         dtypes=(f32, f32, f32, i32, i32))
-    if q_tile % 32 or q_tile > 256 or db_tile % 128:
-        raise ValueError("moments kernel needs q_tile % 32 == 0, q_tile <= "
-                         f"256 and db_tile % 128 == 0, got {q_tile}, "
-                         f"{db_tile}")
-    out = torch.empty((b, np_, 10), dtype=f32, device=amat.device)
-    fn = kernels.entry("fpfh.cu", "pct_moments", n_ptr=6, n_int=4, n_float=1)
-    kernels.check(fn(amat.data_ptr(), dbmat.data_ptr(), cent.data_ptr(),
-                     base.data_ptr(), nt.data_ptr(), out.data_ptr(), b, np_,
-                     q_tile, db_tile, r2, kernels.stream_ptr(amat.device)),
-                  "moments")
+    out = _launch_moments(amat, dbmat, cent, base, nt, q_tile, db_tile, r2)
     moments.launches += 1
     return out
 

@@ -20,7 +20,9 @@ one f64 sum, and an ICP loop follows one trajectory on both. K7 and K8
 run one CUDA body and spread a launch over the card in units of (tile,
 query slice) with lanes that share a query, shaped by `moments_v2_plan`;
 K7 takes its queries posed and its window offsets from the wrapper, K8
-poses its tiles and finds their windows itself.
+poses its tiles and finds their windows itself. K6 takes the same units,
+lanes and ring (`nearest_banded_plan`): each lane keeps its strict '<'
+minimum, and a query's lanes take the lexicographic (d2, column) minimum.
 """
 from __future__ import annotations
 
@@ -34,11 +36,13 @@ from pctpu_torch.core.cloud import round_up
 BIG = 1e30
 LUT_BINS = 1024
 
-# K7's and K8's CTA shape (csrc/banded.cu kMomThreads, kMomQpt): a unit
-# holds MOMENTS_THREADS * MOMENTS_QPT / lanes queries of one tile
+# K6's, K7's and K8's CTA shape (csrc/banded.cu kMomThreads, kMomQpt,
+# kNnQpt): a unit holds MOMENTS_THREADS * (queries a thread) / lanes
+# queries of one tile
 MOMENTS_THREADS, MOMENTS_QPT, MOMENTS_MAX_LANES = 256, 4, 32
+NEAREST_QPT = 4
 # the least units a launch aims for per SM (the rule of
-# pallas_icp_mega.unit_plan, which K7's and K8's body follows)
+# pallas_icp_mega.unit_plan, which K6's, K7's and K8's units follow)
 MOMENTS_UNITS_PER_SM = 3
 
 _tickets: dict = {}
@@ -176,17 +180,23 @@ def nearest_banded_plain(q, dbt, pen, offsets, block: int, wb: int,
     return minv.reshape(mp), mini.reshape(mp)
 
 
-def _launch_nearest_banded(q, dbt, pen, offsets, block, wb, query_tile):
+def _launch_nearest_banded(q, dbt, pen, offsets, block, wb, query_tile,
+                           plan: Optional[dict] = None):
+    """Launch K6 on CUDA tensors (the layouts of `nearest_banded_plain`)
+    -> (d2, idx): one CTA per unit of `plan` (default
+    `nearest_banded_plan`)."""
     f32, i32 = torch.float32, torch.int32
     kernels.require_cuda("nearest_banded", q, dbt, pen, offsets,
                          dtypes=(f32, f32, f32, i32))
     mp, np_ = q.shape[0], dbt.shape[1]
+    if plan is None:
+        plan = nearest_banded_plan(mp, query_tile, kernels.sm_count(q.device))
     d2 = torch.empty((mp,), dtype=f32, device=q.device)
     idx = torch.empty((mp,), dtype=i32, device=q.device)
-    fn = kernels.entry("banded.cu", "pct_banded_nn", n_ptr=6, n_int=5)
+    fn = kernels.entry("banded.cu", "pct_banded_nn", n_ptr=6, n_int=6)
     kernels.check(fn(q.data_ptr(), dbt.data_ptr(), pen.data_ptr(),
                      offsets.data_ptr(), d2.data_ptr(), idx.data_ptr(),
-                     mp, np_, block, wb, query_tile,
+                     mp, np_, block, wb, query_tile, plan["lanes"],
                      kernels.stream_ptr(q.device)), "nearest_banded")
     return d2, idx
 
@@ -397,18 +407,11 @@ def icp_moments_banded_v2_plain(scal, lut, centers, src3, spen, dbt4, pen2t,
                                 pen2t, base, block, wb, thresh2)
 
 
-def moments_v2_plan(mp: int, query_tile: int, sms: int,
-                    lanes: Optional[int] = None) -> Optional[dict]:
-    """How one K7 or K8 launch of `mp` queries in tiles of `query_tile`
-    spreads over a card of `sms` SMs (the rule of
-    `pallas_icp_mega.unit_plan` at B = 1, with their CTA shape). `lanes`
-    (a power of two up to 32) lanes share a query, so a unit holds
-    `slice` = MOMENTS_THREADS * MOMENTS_QPT / lanes queries of one tile;
-    by default `lanes` is first raised until `slice` divides the tile,
-    then until there are MOMENTS_UNITS_PER_SM units per SM. A tile is
-    `slices` units; the grid is all `units`. None for lanes the kernel
-    does not take."""
-    slots = MOMENTS_THREADS * MOMENTS_QPT
+def _unit_plan(mp: int, query_tile: int, sms: int, lanes: Optional[int],
+               qpt: int) -> Optional[dict]:
+    """The units of one K6, K7 or K8 launch (their CTA of MOMENTS_THREADS
+    threads, `qpt` queries a thread); see `moments_v2_plan`."""
+    slots = MOMENTS_THREADS * qpt
     ntiles = mp // query_tile
 
     def units(ln):
@@ -423,19 +426,43 @@ def moments_v2_plan(mp: int, query_tile: int, sms: int,
     elif lanes < 1 or lanes > MOMENTS_MAX_LANES or lanes & (lanes - 1):
         return None
     slc = slots // lanes
-    return dict(lanes=lanes, slice=slc, slices=-(-query_tile // slc),
+    return dict(lanes=lanes, qpt=qpt, slice=slc, slices=-(-query_tile // slc),
                 tiles=ntiles, units=units(lanes), sms=sms)
 
 
-def moments_v2_unit_queries(plan: dict, query_tile: int, unit: int) -> list:
-    """The query columns unit `unit` of a K8 launch holds, in the
-    kernel's thread order: slice q0 of tile t, query q0 + s * (threads /
-    lanes) + group for s < MOMENTS_QPT, where it lies in the tile."""
+def moments_v2_plan(mp: int, query_tile: int, sms: int,
+                    lanes: Optional[int] = None) -> Optional[dict]:
+    """How one K7 or K8 launch of `mp` queries in tiles of `query_tile`
+    spreads over a card of `sms` SMs (the rule of
+    `pallas_icp_mega.unit_plan` at B = 1, with their CTA shape). `lanes`
+    (a power of two up to 32) lanes share a query, so a unit holds
+    `slice` = MOMENTS_THREADS * MOMENTS_QPT / lanes queries of one tile;
+    by default `lanes` is first raised until `slice` divides the tile,
+    then until there are MOMENTS_UNITS_PER_SM units per SM. A tile is
+    `slices` units; the grid is all `units`. None for lanes the kernel
+    does not take."""
+    return _unit_plan(mp, query_tile, sms, lanes, MOMENTS_QPT)
+
+
+def nearest_banded_plan(mp: int, query_tile: int, sms: int,
+                        lanes: Optional[int] = None) -> Optional[dict]:
+    """How one K6 launch spreads over the card: `moments_v2_plan`'s rule
+    with K6's NEAREST_QPT queries a thread. K6 keeps 4 units an SM
+    resident (`__launch_bounds__(256, 4)`), so P5's 512 units (16,384
+    queries in tiles of 512 at 32 lanes) run in one wave on 132 SMs."""
+    return _unit_plan(mp, query_tile, sms, lanes, NEAREST_QPT)
+
+
+def unit_queries(plan: dict, query_tile: int, unit: int) -> list:
+    """The query columns unit `unit` of a K6, K7 or K8 launch of `plan`
+    holds, in the kernel's thread order: slice q0 of tile t, query q0 + s
+    * (threads / lanes) + group for s < plan["qpt"], where it lies in the
+    tile."""
     groups = MOMENTS_THREADS // plan["lanes"]
     tile, sl = divmod(unit, plan["slices"])
     q0 = sl * plan["slice"]
     return [tile * query_tile + q0 + s * groups + g
-            for s in range(MOMENTS_QPT) for g in range(groups)
+            for s in range(plan["qpt"]) for g in range(groups)
             if q0 + s * groups + g < query_tile]
 
 

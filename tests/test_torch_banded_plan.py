@@ -1,5 +1,5 @@
 """How K8 (`icp_moments_banded_v2`, `csrc/banded.cu`) spreads a launch
-over the card: `moments_v2_plan` and `moments_v2_unit_queries` in
+over the card: `moments_v2_plan` and `unit_queries` in
 `pctpu_torch/ops/pallas_banded.py`, which mirror the kernel's unit and
 thread arithmetic. They run here without a card; the kernel itself is
 held against its plain version in tests/test_torch_cuda.py."""
@@ -9,7 +9,7 @@ from pctpu_torch.ops.pallas_banded import (MOMENTS_MAX_LANES,
                                            MOMENTS_QPT, MOMENTS_THREADS,
                                            MOMENTS_UNITS_PER_SM,
                                            moments_v2_plan,
-                                           moments_v2_unit_queries)
+                                           unit_queries)
 
 H100_SMS = 132
 
@@ -24,7 +24,7 @@ SHAPES = [(16384, 512), (1024, 128), (3072, 256), (16384, 1024),
 def test_every_query_falls_in_exactly_one_unit(mp, tq):
     plan = moments_v2_plan(mp, tq, H100_SMS)
     cols = [q for u in range(plan["units"])
-            for q in moments_v2_unit_queries(plan, tq, u)]
+            for q in unit_queries(plan, tq, u)]
     assert sorted(cols) == list(range(mp))
     assert plan["units"] == plan["tiles"] * plan["slices"]
     assert plan["slice"] * plan["lanes"] == MOMENTS_THREADS * MOMENTS_QPT
@@ -38,7 +38,7 @@ def test_every_lane_count_covers_every_query(lanes, mp, tq):
     plan = moments_v2_plan(mp, tq, H100_SMS, lanes=lanes)
     assert plan["lanes"] == lanes
     cols = [q for u in range(plan["units"])
-            for q in moments_v2_unit_queries(plan, tq, u)]
+            for q in unit_queries(plan, tq, u)]
     assert sorted(cols) == list(range(mp))
 
 
@@ -60,9 +60,9 @@ def test_slice_divides_the_tile_where_it_can(mp, tq):
     if tq % floor == 0:
         assert tq % plan["slice"] == 0
         for u in range(plan["units"]):
-            assert len(moments_v2_unit_queries(plan, tq, u)) == plan["slice"]
+            assert len(unit_queries(plan, tq, u)) == plan["slice"]
     else:   # the uneven tile: only each tile's last unit is short
-        sizes = [len(moments_v2_unit_queries(plan, tq, u))
+        sizes = [len(unit_queries(plan, tq, u))
                  for u in range(plan["slices"])]
         assert sizes[:-1] == [plan["slice"]] * (plan["slices"] - 1)
         assert 0 < sizes[-1] < plan["slice"]

@@ -434,6 +434,73 @@ def test_nearest_banded_kernel_matches_plain(gen, cuda):
     assert torch.equal(idxk, bdb.order[sidx[:q.shape[0]].long()])
 
 
+def _k6_ties(gen, dev, n=3000, dup=3, block=256):
+    """db points on a 1/4 grid, each `dup` times over side by side in the
+    sorted order (exact d2 ties inside a block, across a query's lanes
+    and across block edges), 30% masked; queries on the same grid."""
+    g = np.round(gen.uniform(0, 10, (n // dup, 3)) * 4) / 4
+    g[:, 0] *= 10
+    db = np.repeat(g, dup, axis=0).astype(np.float32)
+    mask = gen.uniform(size=db.shape[0]) > 0.3
+    q = db[gen.integers(0, db.shape[0], 1200)]
+    q = (q + np.round(gen.normal(scale=0.5, size=q.shape) * 4) / 4).astype(
+        np.float32)
+    bdb = pallas_banded.build_banded(_t(db, dev), _t(mask, dev), block=block)
+    return bdb, _t(q[np.argsort(q[:, 0])], dev)
+
+
+@pytest.mark.parametrize("lanes", [1, 4, 32])
+@pytest.mark.parametrize("case", ["random", "ties"])
+def test_nearest_banded_kernel_every_lane_count(gen, cuda, lanes, case):
+    """K6 at forced lane counts (the lanes of a query split its window's
+    columns and combine by (d2, column)): d2 and idx equal to the plain
+    version's, on random points and on duplicated grid points with exact
+    ties; one tile's window moved onto the masked and pad columns at the
+    db's end gives (1e30, 0); two launches give the same bits."""
+    block, wb, tq = 256, 2, 128
+    bdb, q = (_banded_case(gen, cuda)[:2] if case == "random"
+              else _k6_ties(gen, cuda))
+    q_, dbt, pen, off = pallas_banded._nearest_banded_args(bdb, q, block, wb,
+                                                           tq)
+    nb = dbt.shape[1] // block
+    off = off.clone()
+    off[1] = nb - wb
+    assert bool((pen[(nb - wb) * block:] > 1e29).all())
+    args = (q_, dbt, pen, off, block, wb, tq)
+    plan = pallas_banded.nearest_banded_plan(q_.shape[0], tq,
+                                             kernels.sm_count(cuda),
+                                             lanes=lanes)
+    d2k, ik = pallas_banded._launch_nearest_banded(*args, plan=plan)
+    again = pallas_banded._launch_nearest_banded(*args, plan=plan)
+    d2p, ip = pallas_banded.nearest_banded_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(d2k, d2p) and torch.equal(ik, ip)
+    assert torch.equal(again[0], d2k) and torch.equal(again[1], ik)
+    assert bool((d2k[tq:2 * tq] == pallas_banded.BIG).all())
+    assert not bool(ik[tq:2 * tq].any())
+
+
+def test_nearest_banded_kernel_at_p5_shape(gen, cuda):
+    """K6 at P5's launch (16,384 queries against 16,384 db points, blocks
+    of 2,048, a window of 2, tiles of 512): the plan's units fill the
+    card in one wave; d2 and idx equal to the plain version's."""
+    db = gen.uniform(0, 10, (16384, 3)).astype(np.float32)
+    db[:, 0] *= 10
+    q = (db[gen.integers(0, 16384, 16384)]
+         + gen.normal(scale=0.05, size=(16384, 3))).astype(np.float32)
+    bdb = pallas_banded.build_banded(_t(db, cuda), None, block=2048)
+    args = pallas_banded._nearest_banded_args(
+        bdb, _t(q[np.argsort(q[:, 0])], cuda), 2048, 2, 512) + (2048, 2, 512)
+    plan = pallas_banded.nearest_banded_plan(16384, 512,
+                                             kernels.sm_count(cuda))
+    assert 3 * kernels.sm_count(cuda) <= plan["units"] \
+        <= 4 * kernels.sm_count(cuda)
+    d2k, ik = pallas_banded._launch_nearest_banded(*args)
+    d2p, ip = pallas_banded.nearest_banded_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(d2k, d2p) and torch.equal(ik, ip)
+
+
 def _rel(a, b):
     return float((a - b).abs().max() / b.abs().max())
 
@@ -1046,6 +1113,58 @@ def test_moments_kernel_matches_plain(gen, cuda, banded):
                  & (k <= torch.nextafter(p, inf))).all())
     if banded:
         assert int(args[4][0, 1]) == 0 and not bool(k[0, 256:512].any())
+
+
+def _within_ulp(k, p):
+    inf = torch.tensor(float("inf"), device=p.device)
+    return bool(((k >= torch.nextafter(p, -inf))
+                 & (k <= torch.nextafter(p, inf))).all())
+
+
+def test_moments_kernel_shuffled_unbanded_cloud(gen, cuda):
+    """Kernel 9 on a cloud in no x order (its step tables cannot prune, so
+    every step of the band is tested), unbanded: within one f32 ulp of the
+    plain version, counts equal, every shape of the plan bit for bit the
+    same as the default launch, and a repeat too."""
+    b, n = 2, 3000
+    g = gen.uniform(-20, 20, (b, n, 2))
+    pts = np.concatenate([g, 0.05 * g[..., :1] + gen.normal(
+        scale=0.1, size=(b, n, 1))], axis=-1).astype(np.float32)
+    mask = gen.uniform(size=(b, n)) > 0.1
+    amat, dbmat, cent, valid = pallas_fpfh._moments_inputs(
+        _t(pts, cuda), _t(mask, cuda), 3072, 256)
+    base, nt = pallas_fpfh._band(amat[..., 0], valid, 1.5, 256, 512, False,
+                                 0.0)
+    args = (amat, dbmat, cent, base, nt, 256, 512, 2.25)
+    k = pallas_fpfh._launch_moments(*args)
+    again = pallas_fpfh._launch_moments(*args)
+    p = pallas_fpfh.moments_plain(*args)
+    torch.cuda.synchronize()
+    assert _within_ulp(k, p) and torch.equal(k[..., 9], p[..., 9])
+    assert torch.equal(k, again)
+    assert float(p[..., 9].sum()) > 10 * b * n
+    sms = kernels.sm_count(cuda)
+    for threads in (64, 256, 1024):
+        for wq in (1, 2, 4):
+            plan = pallas_fpfh.moments_plan(b, 3072, 256, sms,
+                                            threads=threads, warp_queries=wq)
+            assert torch.equal(pallas_fpfh._launch_moments(*args, plan=plan),
+                               k), (threads, wq)
+
+
+@pytest.mark.parametrize("q_tile", [64, 256])
+@pytest.mark.parametrize("banded", [False, True])
+def test_moments_kernel_query_tiles(gen, cuda, q_tile, banded):
+    """Kernel 9 at query tiles of 64 and 256 on x-sorted planes (its step
+    tables prune), banded and not: within one f32 ulp of the plain
+    version, counts equal, a repeat bit for bit the same."""
+    args, _, _ = _moments_case(gen, cuda, banded, q_tile=q_tile)
+    k = pallas_fpfh.moments(*args)
+    again = pallas_fpfh.moments(*args)
+    p = pallas_fpfh.moments_plain(*args)
+    torch.cuda.synchronize()
+    assert _within_ulp(k, p) and torch.equal(k[..., 9], p[..., 9])
+    assert torch.equal(k, again)
 
 
 def test_normals_radius_fused_kernel_on_a_plane(gen, cuda):
