@@ -48,7 +48,22 @@ hand-written kernel against its plain PyTorch version:
      16 pairs written as oxford .bin files, batch 8: K1-K4, no kernel 5;
   and kernel 9 `moments` through `normals_radius_fused` on P13's frames
   (unbanded) and on P1's voxel clouds (x-banded, then `fpfh_fused` with
-  those normals: K9 -> K2 -> K3).
+  those normals: K9 -> K2 -> K3);
+  P16 `semseg-ssg` serving at S3DIS_SEMSEG_SSG (B 24, 4,096 points x 9
+     channels, 13 classes): `evaluate` over 4 batches of synthetic
+     indoor blocks; per forward kernel 11 x4 and kernel 12 x4 (packed 9,
+     67, 131, 259 channels, nsample 32);
+  P17 `semseg-msg` serving, the same data: kernel 11 x4, kernel 12 x7
+     (SA4's nsample-32 scale, 515 channels, takes ball_query +
+     group_points, as the reference's rule says);
+  P18 `semseg-ssg` training, the preset's recipe on P16's first batch, 1
+     + 5 steps: per step kernel 11 x4, kernel 12 x4, kernel 14 x3 (kernel
+     12's backward at SA2-SA4);
+  P19 `bench.py` workload 6: `cls-ssg` at B 32 x 4,096 x 6 with window
+     grouping and compute_dtype bfloat16 (P10's clouds), and `semseg-ssg`
+     at B 16 x 4,096 x 9 with window grouping (P16's blocks, Morton-sorted
+     with their labels; float32, as the segmenters take no dtype), 1 + 5
+     train steps each; no kernel runs there.
 
 P13-P14 build their worlds and scans from fixed seeds as `bench.py` and
 the test do (rng 5 and 0); P15 writes its files under
@@ -59,7 +74,9 @@ LiDAR scan made from --seed, or the velodyne file given by --scan. P7 and
 P8 take synthetic ModelNet-style clouds made from --seed: points and
 normals sampled on the surface of a random box, cylinder or sphere; P10
 and P11 train on the first 32 of them, P12 on the toy task of
-`tests/test_fit.py`.
+`tests/test_fit.py`. P16-P18 take synthetic S3DIS-style blocks made from
+--seed (`indoor_rooms`: floor, ceiling, walls and furniture boxes, 13
+labels, indoor3d's channels).
 
 Phases:
   1. environment: versions, the card's name and power limit, precision
@@ -72,7 +89,11 @@ Phases:
      loss at every step, every parameter moved, one BN's running
      statistics moved by the schedule's momentum, loss and gradients
      against the plain versions and against the CPU; fit: val acc > 0.9
-     and a resume; SLAM: bench.py's gates, >= 1 closure and an optimized
+     and a resume; the segmenters: logits within 1e-5 of the plain
+     versions' and 1e-4 of the CPU's on 4 clouds, P18's gradients within
+     5e-2 of their norms of the CPU's; workload 6: finite losses, the
+     logits of 2 clouds within 1e-2 of the largest (bf16) and 1e-4
+     (float32) of the CPU's; SLAM: bench.py's gates, >= 1 closure and an optimized
      ATE below the raw one and 0.8 m; the figure-eight: the test's gates;
      the driver: no failed pair, every pair within the bound); its speed
      (CUDA events, or the host clock around a synchronised call);
@@ -156,6 +177,9 @@ MEGA_SPREAD = ("P1 register_pairs", "P2 workload 1", "P3 workload 4")
 CLS_REQUESTS, CLS_BATCH, CLS_POINTS = 4, 32, 4096   # MODELNET40_CLS_*
 ENTRY_FPS_M = 512                   # SA1 of the entry forward
 TRAIN_STEPS = 5                     # timed train steps, after 1 warm-up
+SEM_REQUESTS, SEM_BATCH, SEM_POINTS = 4, 24, 4096   # S3DIS_SEMSEG_*
+SEM_CPU = 4                         # clouds held against the CPU
+W6_SEM_BATCH = 16                   # bench.py:375 semseg-ssg batch
 ODO_FRAMES = 32                     # bench.py ODO_FRAMES
 ODO_CFG = dict(voxel_leaf=0.4, icp_iters=30, icp_dist_thresh=3.0,
                keyframe_every=4, closure_radius=13.0, closure_min_gap=3,
@@ -295,6 +319,46 @@ def modelnet_like(rng, count, n_points):
         clouds.append(np.concatenate([pc_normalize_np(p @ R.T), nrm @ R.T],
                                      axis=1))
     return np.stack(clouds).astype(np.float32), labels
+
+
+def indoor_rooms(rng, count, n_points):
+    """Synthetic S3DIS-style blocks: (clouds [count,N,9] f32, labels
+    [count,N] int) with indoor3d's channels, xyz in a 1 x 1 m block of a
+    room 3 m high, rgb in [0, 1] and xyz divided by the room's extent,
+    and 13 labels: ceiling 0, floor 1, wall 2 (the planes x = 0 and
+    y = 1) and boxes of the furniture classes 3-12 (their five visible
+    faces, by area); colours per class plus noise, 2 mm jitter."""
+    extent = np.array([1.0, 1.0, 3.0])
+    base = rng.uniform(size=(13, 3))
+    clouds, labels = [], []
+    for _ in range(count):
+        part = rng.choice(4, n_points, p=[0.15, 0.25, 0.3, 0.3])
+        p = rng.uniform(size=(n_points, 3)) * extent
+        lab = np.array([0, 1, 2, 0])[part]
+        p[part == 0, 2] = 3.0
+        p[part == 1, 2] = 0.0
+        wall = np.flatnonzero(part == 2)
+        on_y = rng.uniform(size=wall.size) < 0.5
+        p[wall[on_y], 1], p[wall[~on_y], 0] = 1.0, 0.0
+        boxes = np.flatnonzero(part == 3)
+        which = rng.integers(0, 3, boxes.size)
+        for j in range(3):
+            lo = rng.uniform([0.1, 0.1, 0.0], [0.6, 0.6, 0.0])
+            size = rng.uniform([0.1, 0.1, 0.3], [0.4, 0.4, 1.8])
+            sel = boxes[which == j]
+            q = lo + rng.uniform(size=(sel.size, 3)) * size
+            face = rng.integers(0, 5, sel.size)      # no bottom face
+            side = np.flatnonzero(face < 4)
+            ax, hi = face[side] // 2, face[side] % 2
+            q[side, ax] = lo[ax] + hi * size[ax]
+            q[face == 4, 2] = lo[2] + size[2]
+            p[sel] = q
+            lab[sel] = rng.integers(3, 13)
+        p += rng.normal(scale=0.002, size=p.shape)
+        rgb = np.clip(base[lab] + rng.normal(scale=0.05, size=p.shape), 0, 1)
+        clouds.append(np.concatenate([p, rgb, p / extent], axis=1))
+        labels.append(lab)
+    return np.stack(clouds).astype(np.float32), np.stack(labels)
 
 
 def toy_dataset(n, num_points=128, seed=0):
@@ -1043,7 +1107,11 @@ def check_ball_group(bg, bq, gather, calls, torch):
     composition group_points(packed, ball_query(...)) - centre: equal at
     every centre, except where the two distance formulas (ball_query's is
     a matmul, the kernel's an elementwise expansion) round a point within
-    1e-6 of r^2 to opposite sides; such centres are counted. Returns (max
+    1e-6 of r^2 to opposite sides; such centres are counted. Both
+    expansions cancel |p|^2 + |c|^2 down to d^2, so the 1e-6 holds for
+    points within the unit sphere (the classifiers' clouds) and grows
+    with (|p|^2 + |c|^2) / 2 past it (the segmenters' rooms, 3 m high).
+    Returns (max
     err, boundary centres, per-launch (ops, bytes, candidates)): ~10 flops
     per candidate the scan must test (up to the nsample-th hit, or all N),
     the inputs read once, grouped rows and idx written once."""
@@ -1066,10 +1134,12 @@ def check_ball_group(bg, bq, gather, calls, torch):
         need(torch.equal(gk[same], comp[same]), "ball_group vs composition")
         if not bool(same.all()):
             bi, mi = torch.nonzero(~same, as_tuple=True)
-            d2 = ((packed[bi, :, :3].double()
-                   - centers[bi, mi, None].double()) ** 2).sum(-1)
+            p, c = packed[bi, :, :3].double(), centers[bi, mi, None].double()
+            d2 = ((p - c) ** 2).sum(-1)
             r2 = float(torch.tensor(radius, dtype=torch.float32)) ** 2
-            need(bool(((d2 - r2).abs() <= 1e-6).any(-1).all()),
+            near = 1e-6 * torch.clamp_min(
+                ((p * p).sum(-1) + (c * c).sum(-1)) / 2, 1.0)
+            need(bool(((d2 - r2).abs() <= near).any(-1).all()),
                  "ball_group vs composition away from the boundary")
             boundary += int(bi.numel())
         full = ik[..., -1] != ik[..., 0]        # nsample hits were found
@@ -1694,11 +1764,16 @@ def main(argv=None):
     # ---- P10, P11 classification training: kernels 11, 12, 14 ------------
     pc_tr, lab_tr = on_dev(clouds[:CLS_BATCH], labels[:CLS_BATCH])
 
-    def train_path(name, preset, n_bg):
+    def train_path(label, name, preset, pc_tr, lab_tr, expect, keep_shape,
+                   cpu_grad_tol=1e-2, record=None):
         """1 warm-up and TRAIN_STEPS timed steps of the preset's recipe
-        (augmentation on the card, then `make_train_step`), with the
-        gates of P10. Returns the warm-up step's recorded kernel-14
-        launches and unfused `group_points` inputs."""
+        (augmentation on the card, then `make_train_step`) on the batch
+        pc_tr, lab_tr, with the gates of P10; `expect` holds one step's
+        launches, `keep_shape` the head's dropout mask. Returns the
+        warm-up step's recorded kernel-14 launches and unfused
+        `group_points` inputs; with a dict `record`, fills it with the
+        inputs of every kernel 11, 12 and 14 launch of all the steps."""
+        batch = pc_tr.shape[0]
         model, state = T.create_train_state(
             preset, torch.Generator().manual_seed(args.seed), pc_tr,
             device=dev)
@@ -1718,7 +1793,7 @@ def main(argv=None):
         snap = copy.deepcopy(model.state_dict())
         x = augment.augment_batch(fit.step_generator(args.seed, 99, 0, dev),
                                   pc_tr)
-        keep = torch.rand((CLS_BATCH, 256), generator=torch.Generator(
+        keep = torch.rand(keep_shape, generator=torch.Generator(
             device=dev).manual_seed(args.seed), device=dev) < 0.5
         bnm = T.bn_momentum_schedule(preset, 0)
         lk, _, gk = T.loss_and_grads(model, x, lab_tr, bnm, dropout_mask=keep)
@@ -1736,10 +1811,11 @@ def main(argv=None):
 
         # 2 clouds on the card and on the CPU, every scale through kernel
         # 12 / its plain version (the same neighbours on both sides): the
-        # loss within 1e-4 relative and each gradient within 1e-2 of its
-        # norm. cuBLAS and the CPU's BLAS sum in other orders, and
+        # loss within 1e-4 relative and each gradient within cpu_grad_tol
+        # of its norm. cuBLAS and the CPU's BLAS sum in other orders, and
         # train-mode BN over 2 clouds amplifies rounding (the port's own
-        # float32 gradients are 1e-3 of a norm from float64 there).
+        # float32 gradients are 1e-3 of a norm from float64 there for
+        # cls-ssg, 8.4e-3 for semseg-ssg, `tests/test_torch_semseg.py`).
         cpu_model = copy.deepcopy(model).cpu()
         with swapped(pointnet2, "fused_ok", lambda *a: True):
             lk2, _, gk2 = T.loss_and_grads(model, x[:2], lab_tr[:2], bnm,
@@ -1750,7 +1826,8 @@ def main(argv=None):
         model.load_state_dict(snap)
         dcpu = abs(float(lk2) - float(lc2)) / abs(float(lc2))
         gcpu = grad_err(gk2, gc2)
-        need(dcpu <= 1e-4 and gcpu <= 1e-2, name, "vs the CPU", dcpu, gcpu)
+        need(dcpu <= 1e-4 and gcpu <= cpu_grad_tol, name, "vs the CPU",
+             dcpu, gcpu)
 
         before = [p.detach().clone() for p in model.parameters()]
         bn, seen = model.sa[0].mlps[0].bn[0], {}
@@ -1760,6 +1837,12 @@ def main(argv=None):
             dims = tuple(range(x.dim() - 1))
             seen.update(mean=mod.mean.double(), var=mod.var.double(),
                         bmean=x.mean(dims), bvar=x.var(dims, unbiased=False))
+        every = contextlib.ExitStack()
+        for mod, fn in ((pallas_fps, "_launch_fps"),
+                        (pallas_ballgroup, "_launch_ball_group"),
+                        (pallas_gather, "_launch_scatter_add_rows")):
+            if record is not None:
+                record[fn] = every.enter_context(Recorder(mod, fn)).calls
         hook = bn.register_forward_pre_hook(bn_hook)
         with Recorder(pallas_gather, "_launch_scatter_add_rows") as rs, \
                 Recorder(pointnet2, "group_points") as rgp:
@@ -1784,10 +1867,9 @@ def main(argv=None):
             ev2[1].record()
             return outs
         torch.cuda.reset_peak_memory_stats()
-        outs = paths.run(name, timed, {
-            "fps_pallas_batched": 2 * TRAIN_STEPS,
-            "ball_group": n_bg * TRAIN_STEPS,
-            "scatter_add_rows": TRAIN_STEPS})
+        outs = paths.run(name, timed, {k: v * TRAIN_STEPS
+                                       for k, v in expect.items()})
+        every.close()
         step_ms = ev2[0].elapsed_time(ev2[1]) / TRAIN_STEPS
         peak = torch.cuda.max_memory_allocated()
         losses = [float(o["loss"]) for o in [out0] + outs]
@@ -1799,14 +1881,14 @@ def main(argv=None):
             fit.step_generator(args.seed, 0, 0, dev), pc_tr), reps=5)
 
         metrics[name] = dict(
-            batch=CLS_BATCH, points=CLS_POINTS, steps=TRAIN_STEPS,
-            step_ms=step_ms, clouds_per_s=CLS_BATCH / (step_ms / 1e3),
+            batch=batch, points=pc_tr.shape[1], steps=TRAIN_STEPS,
+            step_ms=step_ms, clouds_per_s=batch / (step_ms / 1e3),
             augment_ms=aug_ms, peak_mem_bytes=peak, losses=losses,
             bn_momentum_err=bn_err, loss_err_vs_plain=dloss,
             grad_err_vs_plain=dgrad, loss_err_vs_cpu=dcpu,
             grad_err_vs_cpu=gcpu)
-        print(f"P{10 if name == 'train_cls_msg' else 11} {name} "
-              f"{CLS_BATCH} x {CLS_POINTS} pts: {step_ms:.2f} ms per step "
+        print(f"{label} {name} {batch} x {pc_tr.shape[1]} pts: "
+              f"{step_ms:.2f} ms per step "
               f"= {metrics[name]['clouds_per_s']:.1f} clouds/s trained "
               f"(augmentation {aug_ms:.2f} ms); peak {peak / 2**30:.2f} GiB;"
               f" losses {', '.join(f'{v:.4f}' for v in losses)}; BN "
@@ -1817,9 +1899,13 @@ def main(argv=None):
         return rs.calls, [(p.detach(), i) for p, i in rgp.calls]
 
     r_sc, r_gp = {}, {}
-    for name, preset, n_bg in (("train_cls_msg", nncfg.MODELNET40_CLS_MSG, 4),
-                               ("train_cls_ssg", nncfg.MODELNET40_CLS_SSG, 2)):
-        r_sc[name], r_gp[name] = train_path(name, preset, n_bg)
+    for label, name, preset, n_bg in (
+            ("P10", "train_cls_msg", nncfg.MODELNET40_CLS_MSG, 4),
+            ("P11", "train_cls_ssg", nncfg.MODELNET40_CLS_SSG, 2)):
+        r_sc[name], r_gp[name] = train_path(
+            label, name, preset, pc_tr, lab_tr,
+            {"fps_pallas_batched": 2, "ball_group": n_bg,
+             "scatter_add_rows": 1}, (CLS_BATCH, 256))
         torch.cuda.empty_cache()
 
     # ---- P12 fit on the toy task, checkpoint and resume --------------------
@@ -1950,6 +2036,176 @@ def main(argv=None):
     rows["gather_rows"]["per_launch_ms"] = [
         cuda_ms(lambda a=a: pallas_gather._launch_gather_rows(*a), reps=5)
         for a in r13.calls]
+
+    # ---- P16, P17 segmentation serving: kernels 11, 12 --------------------
+    rooms, room_labels = indoor_rooms(np.random.default_rng([args.seed, 16]),
+                                      SEM_REQUESTS * SEM_BATCH, SEM_POINTS)
+    room_set = list(zip(rooms, room_labels))
+    pc_s, lab_s = on_dev(rooms[:SEM_BATCH], room_labels[:SEM_BATCH])
+    r_sfps, r_sbg = {}, {}
+    for label, name, preset, n_bg in (
+            ("P16", "semseg_ssg", nncfg.S3DIS_SEMSEG_SSG, 4),
+            ("P17", "semseg_msg", nncfg.S3DIS_SEMSEG_MSG, 7)):
+        model = T.build_model(preset, device=dev, generator=torch.Generator(
+            ).manual_seed(args.seed))
+        ev = T.make_eval_step(model, dev)
+        ev(pc_s, lab_s)                                         # warm-up
+        with Recorder(pallas_fps, "_launch_fps") as rf, \
+                Recorder(pallas_ballgroup, "_launch_ball_group") as rg:
+            res = paths.run(name, lambda: fit.evaluate(
+                model, room_set, SEM_BATCH, device=dev),
+                {"fps_pallas_batched": 4 * SEM_REQUESTS,
+                 "ball_group": n_bg * SEM_REQUESTS})
+        r_sfps[name], r_sbg[name] = rf.calls, rg.calls
+        need(np.isfinite(res["loss"]) and 0.0 <= res["acc"] <= 1.0, name, res)
+        logits = ev(pc_s, lab_s)["logits"]
+        need(logits.shape == (SEM_BATCH, SEM_POINTS, preset.num_classes)
+             and bool(torch.isfinite(logits).all()), name, "logits")
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(lambda: ev(pc_s, lab_s), reps=5)
+        peak = torch.cuda.max_memory_allocated()
+        with swapped(pallas_fps, "_launch_fps", pallas_fps.fps_plain), \
+                swapped(pallas_ballgroup, "_launch_ball_group",
+                        pallas_ballgroup.ball_group_plain):
+            dlog = float((ev(pc_s, lab_s)["logits"] - logits).abs().max())
+        need(dlog <= 1e-5, name, "logits vs plain versions", dlog)
+        # SEM_CPU clouds on the card and on the CPU, every scale through
+        # kernel 12 / its plain version: within 1e-4 (three-NN's distances
+        # round alike on both, tests/test_torch_cuda.py)
+        cpu_model = copy.deepcopy(model).cpu()
+        with swapped(pointnet2, "fused_ok", lambda *a: True), \
+                torch.no_grad():
+            dcpu = float((model(pc_s[:SEM_CPU]).cpu() - cpu_model(
+                pc_s[:SEM_CPU].cpu())).abs().max())
+        need(dcpu <= 1e-4, name, "logits vs the CPU", dcpu)
+        metrics[name] = dict(
+            requests=SEM_REQUESTS, batch=SEM_BATCH, points=SEM_POINTS,
+            loss=res["loss"], acc=res["acc"], batch_ms=ms,
+            clouds_per_s=SEM_BATCH / (ms / 1e3), peak_mem_bytes=peak,
+            logits_err_vs_plain=dlog, logits_err_vs_cpu=dcpu,
+            kernel12_scales=n_bg)
+        print(f"{label} {name} {SEM_REQUESTS} x {SEM_BATCH} x {SEM_POINTS} "
+              f"pts x 9: loss {res['loss']:.4f}, acc {res['acc']:.4f} "
+              f"(random weights); {ms:.2f} ms per batch = "
+              f"{metrics[name]['clouds_per_s']:.1f} clouds/s; peak "
+              f"{peak / 2**30:.2f} GiB; logits vs plain {dlog:.1e}, vs CPU "
+              f"({SEM_CPU} clouds) {dcpu:.1e}")
+        report["profile_" + name] = profile(name, lambda: ev(pc_s, lab_s),
+                                            torch)
+        del model, cpu_model, ev
+        torch.cuda.empty_cache()
+
+    # ---- P18 semseg-ssg training: kernels 11, 12, 14 ----------------------
+    rec18 = {}
+    r_sc["train_semseg_ssg"], _ = train_path(
+        "P18", "train_semseg_ssg", nncfg.S3DIS_SEMSEG_SSG, pc_s, lab_s,
+        {"fps_pallas_batched": 4, "ball_group": 4, "scatter_add_rows": 3},
+        (SEM_BATCH, SEM_POINTS, 128), cpu_grad_tol=5e-2, record=rec18)
+    torch.cuda.empty_cache()
+
+    # every kernel 11, 12 and 14 launch of P16-P18 against its plain version
+    sem_fps = r_sfps["semseg_ssg"] + r_sfps["semseg_msg"] + rec18["_launch_fps"]
+    sem_bg = (r_sbg["semseg_ssg"] + r_sbg["semseg_msg"]
+              + rec18["_launch_ball_group"])
+    with torch.no_grad():
+        check_fps(pallas_fps, sem_fps, torch)
+        sbg_err, sbg_boundary, sbg_work = check_ball_group(
+            pallas_ballgroup, ball_query, gather, sem_bg, torch)
+    for args14 in rec18["_launch_scatter_add_rows"]:
+        need(torch.equal(pallas_gather._launch_scatter_add_rows(*args14),
+                         pallas_gather.scatter_add_rows_plain(*args14)),
+             "P18 ball_group backward vs plain", tuple(args14[0].shape))
+    need(len(rec18["_launch_scatter_add_rows"]) == 3 * (TRAIN_STEPS + 1),
+         "P18 kernel 14 launches", len(rec18["_launch_scatter_add_rows"]))
+    fwd16 = slice(0, 4)             # one P16 forward's launches
+    sem_rows = dict(
+        fps=time_launches(pallas_fps._launch_fps, pallas_fps.fps_plain,
+                          r_sfps["semseg_ssg"][fwd16],
+                          [fps_work(a) for a in r_sfps["semseg_ssg"][fwd16]]),
+        ball_group=time_launches(
+            pallas_ballgroup._launch_ball_group,
+            pallas_ballgroup.ball_group_plain, r_sbg["semseg_ssg"][fwd16],
+            sbg_work[:4]),
+        ball_group_shapes=[[list(a[0].shape), list(a[1].shape), a[2], a[3]]
+                           for a in r_sbg["semseg_ssg"][fwd16]
+                           + r_sbg["semseg_msg"][:7]])
+    rows["fps_pallas_batched"]["semseg_ssg_forward"] = sem_rows["fps"]
+    rows["ball_group"]["semseg_ssg_forward"] = sem_rows["ball_group"]
+    rows["ball_group"]["semseg_shapes"] = sem_rows["ball_group_shapes"]
+    rows["ball_group"]["max_abs_err"] = max(rows["ball_group"]["max_abs_err"],
+                                            sbg_err)
+    print(f"kernels 11, 12, 14 vs plain on P16-P18: FPS idx identical on "
+          f"{len(sem_fps)} launches, ball_group equal on {len(sem_bg)} "
+          f"({sbg_boundary} centres with a boundary point vs ball_query), "
+          f"kernel 14 bit-equal on "
+          f"{len(rec18['_launch_scatter_add_rows'])}; one semseg-ssg "
+          f"forward: kernel 11 {sem_rows['fps']['ms']:.4f} ms (bound "
+          f"{sem_rows['fps']['bound_ms']:.4f}), kernel 12 "
+          f"{sem_rows['ball_group']['ms']:.4f} ms (bound "
+          f"{sem_rows['ball_group']['bound_ms']:.4f})")
+
+    # ---- P19 bench.py workload 6: window grouping and bf16, no kernel ----
+    w6_rooms = pointnet2.morton_sort_packed(torch.cat(
+        [pc_s[:W6_SEM_BATCH], lab_s[:W6_SEM_BATCH, :, None].float()], -1))
+    for name, model_name, pc_w, lab_w, classes, tol in (
+            ("w6_cls_ssg", "cls-ssg", pc_tr, lab_tr, 40, 1e-2),
+            ("w6_semseg_ssg", "semseg-ssg", w6_rooms[..., :9].contiguous(),
+             w6_rooms[..., 9].long(), 13, 1e-4)):
+        # bench.py:375-377: the configuration workload 6 trains
+        w6 = nncfg.TrainConfig(model=model_name, num_classes=classes,
+                               num_points=pc_w.shape[1],
+                               batch_size=pc_w.shape[0], grouping="window",
+                               compute_dtype="bfloat16", seed=args.seed)
+        model, state = T.create_train_state(
+            w6, torch.Generator().manual_seed(args.seed), pc_w, device=dev)
+        dtypes = {m.dtype for m in model.modules()
+                  if isinstance(m, pointnet2.SharedMLP)}
+        step = T.make_train_step(model, w6, device=dev)
+
+        def w6_step():
+            return step(state, pc_w, lab_w, fit.step_generator(
+                args.seed, state.step, 1, dev))
+        out0 = w6_step()                                        # warm-up
+        ev2 = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+
+        def w6_timed():
+            ev2[0].record()
+            outs = [w6_step() for _ in range(TRAIN_STEPS)]
+            ev2[1].record()
+            return outs
+        torch.cuda.reset_peak_memory_stats()
+        outs = paths.run(name, w6_timed, {})            # no kernel runs
+        step_ms = ev2[0].elapsed_time(ev2[1]) / TRAIN_STEPS
+        peak = torch.cuda.max_memory_allocated()
+        losses = [float(o["loss"]) for o in [out0] + outs]
+        need(all(np.isfinite(losses)), name, "loss", losses)
+        # 2 clouds on the card and on the CPU, eval mode: bf16 products
+        # within 1e-2 of the largest logit (at least 1;
+        # tests/test_torch_window.py's bf16 bound), float32 within 1e-4
+        cpu_model = copy.deepcopy(model).cpu().eval()
+        model.eval()
+        with torch.no_grad():
+            ref_w = cpu_model(pc_w[:2].cpu())
+            dcpu = float((model(pc_w[:2]).cpu() - ref_w).abs().max())
+        if w6.compute_dtype == "bfloat16" and model_name.startswith("cls"):
+            tol *= max(1.0, float(ref_w.abs().max()))
+        need(dcpu <= tol, name, "logits vs the CPU", dcpu, tol)
+        metrics[name] = dict(
+            batch=pc_w.shape[0], points=pc_w.shape[1], steps=TRAIN_STEPS,
+            step_ms=step_ms, clouds_per_s=pc_w.shape[0] / (step_ms / 1e3),
+            peak_mem_bytes=peak, losses=losses, logits_err_vs_cpu=dcpu,
+            mlp_dtypes=sorted(str(d) for d in dtypes))
+        print(f"P19 workload 6 {model_name} {pc_w.shape[0]} x "
+              f"{pc_w.shape[1]} pts, window grouping, compute_dtype "
+              f"bfloat16 (MLPs in {', '.join(sorted(map(str, dtypes)))}): "
+              f"{step_ms:.2f} ms per step = "
+              f"{metrics[name]['clouds_per_s']:.1f} clouds/s trained; peak "
+              f"{peak / 2**30:.2f} GiB; losses "
+              f"{', '.join(f'{v:.4f}' for v in losses)}; logits vs CPU "
+              f"{dcpu:.1e} (limit {tol}); no kernel launched")
+        report["profile_" + name] = profile(name + " step", w6_step, torch)
+        del model, cpu_model, state, step
+        torch.cuda.empty_cache()
 
     # ---- P13 the SLAM loop: bench.py workload 5 (K1, then K2-K4) ----------
     rng13 = np.random.default_rng(5)                    # bench.py:301
@@ -2349,7 +2605,8 @@ def main(argv=None):
                               "pctpu/ops/pallas_ballgroup.py:201 _bgb_bwd")
     rows["ball_group_vjp"] = rows["scatter_add_rows"]
     vjp_launches = sum(paths.launches[p].get("scatter_add_rows", 0)
-                       for p in ("train_cls_msg", "train_cls_ssg", "fit"))
+                       for p in ("train_cls_msg", "train_cls_ssg", "fit",
+                                 "train_semseg_ssg"))
     kern_rows = []
     for name in KERNELS + ("ball_group_vjp",):
         source, replaces = meta[name]

@@ -28,6 +28,25 @@ def rotmat_to_quat(m: torch.Tensor) -> torch.Tensor:
     return torch.stack([qw, qx, qy, qz], dim=-1)
 
 
+def quat_to_rotmat(q: torch.Tensor) -> torch.Tensor:
+    """[...,4] (w,x,y,z) quaternion, normalised first -> [...,3,3]
+    rotation matrix."""
+    q = q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    r00 = 1 - 2 * (y * y + z * z)
+    r01 = 2 * (x * y - w * z)
+    r02 = 2 * (x * z + w * y)
+    r10 = 2 * (x * y + w * z)
+    r11 = 1 - 2 * (x * x + z * z)
+    r12 = 2 * (y * z - w * x)
+    r20 = 2 * (x * z - w * y)
+    r21 = 2 * (y * z + w * x)
+    r22 = 1 - 2 * (x * x + y * y)
+    return torch.stack([torch.stack([r00, r01, r02], dim=-1),
+                        torch.stack([r10, r11, r12], dim=-1),
+                        torch.stack([r20, r21, r22], dim=-1)], dim=-2)
+
+
 def make_transform(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """[...,3,3] R + [...,3] t -> [...,4,4] homogeneous transform."""
     batch = torch.broadcast_shapes(R.shape[:-2], t.shape[:-1])
@@ -42,6 +61,11 @@ def make_transform(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
 def transform_to_tq(T: torch.Tensor):
     """[...,4,4] -> ([...,3] t, [...,4] q_wxyz)."""
     return T[..., :3, 3], rotmat_to_quat(T[..., :3, :3])
+
+
+def tq_to_transform(t: torch.Tensor, q_wxyz: torch.Tensor) -> torch.Tensor:
+    """[...,3] t + [...,4] q_wxyz -> [...,4,4]."""
+    return make_transform(quat_to_rotmat(q_wxyz), t)
 
 
 def invert_transform(T: torch.Tensor) -> torch.Tensor:

@@ -1,4 +1,4 @@
-"""Weights of the JAX package's PointNet++ classifiers into the port's
+"""Weights of the JAX package's PointNet++ models into the port's
 modules.
 
 Input: the flax variables `{"params": ..., "batch_stats": ...}` flattened
@@ -7,8 +7,10 @@ to numpy arrays under `/`-joined names, collection first, e.g.
 `params/Dense_2/bias`, `batch_stats/RuntimeBN_0/mean`. Each flax module
 `Name_k` is the k-th entry of the port's list attribute for that name
 (`SetAbstraction` -> `sa`, `SharedMLP` -> `mlps`, `Dense` -> `dense`,
-`RuntimeBN` -> `bn`); a Dense `kernel [in, out]` becomes a Linear
-`weight [out, in]`.
+`RuntimeBN` -> `bn`, `FeaturePropagation` -> `fp`,
+`CheckpointWindowScale` -> `scales` (flax's name for `nn.remat` of
+`WindowScale`), `FoldedDenseBNRelu` -> `folded`); a `kernel [in, out]`
+(of a Dense or a folded layer) becomes a `weight [out, in]`.
 """
 from __future__ import annotations
 
@@ -19,7 +21,8 @@ import numpy as np
 import torch
 
 MODULES = {"SetAbstraction": "sa", "SharedMLP": "mlps", "Dense": "dense",
-           "RuntimeBN": "bn"}
+           "RuntimeBN": "bn", "FeaturePropagation": "fp",
+           "CheckpointWindowScale": "scales", "FoldedDenseBNRelu": "folded"}
 LEAVES = {"kernel": "weight", "bias": "bias", "scale": "scale",
           "mean": "mean", "var": "var"}
 COLLECTIONS = ("params", "batch_stats")

@@ -1,9 +1,7 @@
 """Training configuration presets (copy of `pctpu/nn/config.py`).
 
 One dataclass config tree; preset values are the reference's exact
-hyperparameters. The port serves `cls-ssg` and `cls-msg` with
-`grouping="ball"` and `compute_dtype="float32"`; the other values are
-kept so a reference config round-trips.
+hyperparameters.
 """
 from __future__ import annotations
 
@@ -27,8 +25,8 @@ class TrainConfig:
     weight_decay: float = 0.0
     grad_clip: float = 0.0          # 0 = off (Final_Project uses 1.0)
     use_xyz: bool = True
-    grouping: str = "ball"          # 'window' is not ported yet
-    compute_dtype: str = "float32"  # 'bfloat16' is not ported yet
+    grouping: str = "ball"          # or 'window' (no gathers, no kernel)
+    compute_dtype: str = "float32"  # 'bfloat16': the classifiers' Dense
     seed: int = 0
 
 

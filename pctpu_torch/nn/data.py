@@ -1,8 +1,8 @@
 """Datasets and host-side batching (numpy copies of `pctpu/nn/data.py`'s
-`pc_normalize_np`, `ModelNet40Dataset`, `split_train_val` and
-`iterate_batches`). `ModelNet40Dataset` reads an unpacked
-`modelnet40_normal_resampled` directory; it does not download one. The
-S3DIS and KITTI datasets are not ported yet.
+`pc_normalize_np`, `ModelNet40Dataset`, `S3DISDataset`,
+`KITTIResampledDataset`, `split_train_val`, `iterate_batches` and
+`distance_weighted_resample`). The datasets read unpacked directories in
+the reference's layouts; none downloads one.
 """
 from __future__ import annotations
 
@@ -101,6 +101,74 @@ class ModelNet40Dataset:
         return item, label
 
 
+class S3DISDataset:
+    """The indoor3d_sem_seg HDF5 layout: <root>/all_files.txt lists the
+    ply_data_all_N.h5 files (each `data` [B,4096,9] f32, `label`
+    [B,4096]), <root>/room_filelist.txt names each block's room; the rooms
+    of Area_{test_area} are the test split. An item is a permutation of a
+    block's points drawn from the dataset's own numpy generator, its first
+    `num_points`: (cloud [num_points, 9] f32, labels [num_points] int32).
+    `h5py` is imported here, as the reference does."""
+
+    def __init__(self, root: str, num_points: int = 4096, train: bool = True,
+                 test_area: int = 5, seed: int = 0):
+        import h5py
+        self.num_points = num_points
+        self.rng = np.random.default_rng(seed)
+        with open(os.path.join(root, "all_files.txt")) as f:
+            h5_files = [os.path.join(root, os.path.basename(line.strip()))
+                        for line in f if line.strip()]
+        with open(os.path.join(root, "room_filelist.txt")) as f:
+            rooms = [line.strip() for line in f if line.strip()]
+        datas, labels = [], []
+        for path in h5_files:
+            with h5py.File(path, "r") as h:
+                datas.append(h["data"][:])
+                labels.append(h["label"][:])
+        data = np.concatenate(datas).astype(np.float32)
+        label = np.concatenate(labels).astype(np.int32)
+        is_test = np.array([f"Area_{test_area}" in r for r in rooms])
+        sel = ~is_test if train else is_test
+        self.data, self.label = data[sel], label[sel]
+
+    def __len__(self):
+        return self.data.shape[0]
+
+    def __getitem__(self, i: int):
+        idx = self.rng.permutation(self.data.shape[1])[: self.num_points]
+        return self.data[i, idx], self.label[i, idx]
+
+
+class KITTIResampledDataset:
+    """The resampled KITTI object set: <root>/<split_file> rows
+    `{category}_{idx}`, each cloud at <root>/<category>/{idx:06d}.txt
+    (64 x 6 CSV), the category list in <root>/object_names.txt. An item
+    is (cloud [64, 6] f32, label)."""
+
+    def __init__(self, root: str, split_file: str):
+        self.root = root
+        with open(os.path.join(root, "object_names.txt")) as f:
+            self.categories = [line.strip() for line in f if line.strip()]
+        cat_index = {c: i for i, c in enumerate(self.categories)}
+        self.items = []
+        with open(os.path.join(root, split_file)) as f:
+            for line in f:
+                line = line.strip()
+                if not line:
+                    continue
+                cat = "_".join(line.split("_")[:-1])
+                idx = int(line.split("_")[-1])
+                self.items.append((os.path.join(root, cat, f"{idx:06d}.txt"),
+                                   cat_index[cat]))
+
+    def __len__(self):
+        return len(self.items)
+
+    def __getitem__(self, i: int):
+        path, label = self.items[i]
+        return np.loadtxt(path, delimiter=",", dtype=np.float32), label
+
+
 def split_train_val(n: int, val_frac: float = 0.2, seed: int = 0):
     """SubsetRandomSampler-style 80/20 split (resampled_dataset.py:66-78)."""
     rng = np.random.default_rng(seed)
@@ -123,3 +191,22 @@ def iterate_batches(dataset, batch_size: int, shuffle: bool = True,
         chunk = order[s:s + batch_size]
         xs, ys = zip(*(dataset[int(i)] for i in chunk))
         yield np.stack(xs), np.asarray(ys)
+
+
+def distance_weighted_resample(points: np.ndarray, num: int,
+                               rng: np.random.Generator,
+                               extra: Optional[np.ndarray] = None):
+    """`num` points drawn with weights equal to each point's mean distance
+    to the others (normalised; uniform when all are 0), with replacement
+    iff num > N, centred on the original cloud's mean; with `extra`, its
+    rows at the same draws too."""
+    n = points.shape[0]
+    d = np.linalg.norm(points[:, None, :] - points[None, :, :], axis=-1)
+    w = d.mean(axis=0)
+    ssum = w.sum()
+    w = np.full(n, 1.0 / n) if ssum <= 0 else w / ssum
+    idx = rng.choice(n, size=num, replace=num > n, p=w)
+    out = points[idx] - points.mean(axis=0)
+    if extra is not None:
+        return out, extra[idx]
+    return out

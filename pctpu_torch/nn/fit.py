@@ -1,14 +1,15 @@
 """Training and evaluation loops (port of `pctpu/nn/fit.py`): `fit` with
 on-device augmentation, early stopping and checkpoints on the best val
-accuracy, resume and `max_steps`; `Logger`; `evaluate`. The reference's
-`test_report` (sklearn's confusion matrix and report) is not ported.
+accuracy, resume and `max_steps`; `Logger`; `evaluate`; `test_report`
+(a confusion matrix counted with numpy, sklearn's classification report,
+optionally the reference's heatmap PNG).
 """
 from __future__ import annotations
 
 import json
 import os
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Iterable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -174,3 +175,78 @@ def fit(cfg: TrainConfig, train_ds, val_ds=None,
 
     return {"model": model, "state": state, "best_val_acc": best_acc,
             "best_epoch": best_epoch, "steps": steps_done}
+
+
+def confusion_matrix(labels: np.ndarray, preds: np.ndarray,
+                     ids: Optional[Sequence[int]] = None) -> np.ndarray:
+    """sklearn's `confusion_matrix(labels, preds, labels=ids)` counted
+    with numpy: [k, k] int64, row = true class, column = predicted, in the
+    order of `ids` (default: the sorted classes seen in either); a pair
+    with a class outside `ids` is not counted."""
+    labels, preds = np.asarray(labels).ravel(), np.asarray(preds).ravel()
+    ids = (np.unique(np.concatenate([labels, preds])) if ids is None
+           else np.asarray(ids))
+    k = len(ids)
+    if k == 0:
+        return np.zeros((0, 0), np.int64)
+    order = np.argsort(ids, kind="stable")
+
+    def position(x):                    # index into ids, -1 if absent
+        at = np.clip(np.searchsorted(ids[order], x), 0, k - 1)
+        return np.where(ids[order][at] == x, order[at], -1)
+    t, p = position(labels), position(preds)
+    keep = (t >= 0) & (p >= 0)
+    return np.bincount(t[keep] * k + p[keep], minlength=k * k).reshape(
+        k, k).astype(np.int64)
+
+
+def test_report(model, test_ds, batch_size: int,
+                class_names: Optional[Iterable[str]] = None,
+                heatmap_path: Optional[str] = None,
+                device: DeviceLike = None) -> Dict:
+    """Accuracy, confusion matrix and sklearn's classification report of
+    `model` over `test_ds` on `device` (CUDA unless "cpu" is asked for);
+    with `heatmap_path` also the reference's annotated heatmap PNG. With
+    class names the label ids are 0..len(names) - 1, so the matrix keeps
+    its shape when a class is absent. sklearn is imported here, as the
+    reference does: without it this raises ImportError."""
+    from sklearn.metrics import classification_report
+    res = evaluate(model, test_ds, batch_size, collect_logits=True,
+                   device=device)
+    labels, preds = res["labels"], res["preds"]
+    names = list(class_names) if class_names else None
+    ids = list(range(len(names))) if names else None
+    cm = confusion_matrix(labels, preds, ids)
+    report = classification_report(labels, preds, zero_division=0,
+                                   labels=ids, target_names=names)
+    if heatmap_path:
+        _render_confusion_heatmap(cm, names, heatmap_path)
+    return {"acc": res["acc"], "confusion_matrix": cm, "report": report}
+
+
+def _render_confusion_heatmap(cm: np.ndarray, class_names,
+                              path: str) -> None:
+    """An annotated confusion-matrix heatmap PNG (the reference's
+    artifact), drawn with matplotlib's Agg backend."""
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+    names = list(class_names) if class_names else [
+        str(i) for i in range(cm.shape[0])]
+    names = names[:cm.shape[0]]
+    fig, ax = plt.subplots(figsize=(5, 4.2))
+    im = ax.imshow(cm, cmap="Blues")
+    ax.set_xticks(range(cm.shape[1]), names, rotation=45, ha="right")
+    ax.set_yticks(range(cm.shape[0]), names)
+    ax.set_xlabel("predicted")
+    ax.set_ylabel("true")
+    thresh = cm.max() / 2.0 if cm.size else 0
+    for i in range(cm.shape[0]):
+        for j in range(cm.shape[1]):
+            ax.text(j, i, str(cm[i, j]), ha="center", va="center",
+                    color="white" if cm[i, j] > thresh else "black")
+    fig.colorbar(im, ax=ax)
+    fig.tight_layout()
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    fig.savefig(path, dpi=110)
+    plt.close(fig)

@@ -14,6 +14,7 @@ moments, step) where the reference returns a new one.
 from __future__ import annotations
 
 import dataclasses
+import inspect
 from typing import List, Optional
 
 import torch
@@ -47,27 +48,42 @@ def bn_momentum_schedule(cfg: TrainConfig, step: int) -> float:
     return _decayed(cfg, step, cfg.bn_momentum, cfg.bnm_decay, cfg.bnm_clip)
 
 
+def compute_dtype(cfg: TrainConfig) -> torch.dtype:
+    """cfg.compute_dtype ("float32", "bfloat16", ...) as a torch dtype."""
+    dtype = getattr(torch, cfg.compute_dtype, None)
+    if not isinstance(dtype, torch.dtype) or not dtype.is_floating_point:
+        raise ValueError(f"compute_dtype={cfg.compute_dtype!r} is not a "
+                         "floating dtype")
+    return dtype
+
+
 def build_model(cfg: TrainConfig, device: DeviceLike = None,
                 generator: Optional[torch.Generator] = None,
-                in_channels: int = 6) -> torch.nn.Module:
-    """The configured classifier in eval mode on `device` (CUDA unless
-    "cpu" is asked for). Weights are initialised on the CPU from
-    `generator` (default: a CPU generator seeded with `cfg.seed`), then
-    moved. `in_channels` is the input cloud's channel count (ModelNet40:
-    xyz + normals = 6)."""
+                in_channels: Optional[int] = None) -> torch.nn.Module:
+    """The configured model in eval mode on `device` (CUDA unless "cpu" is
+    asked for). Weights are initialised on the CPU from `generator`
+    (default: a CPU generator seeded with `cfg.seed`), then moved.
+    `in_channels` is the input cloud's channel count (default: 9 for the
+    segmenters, S3DIS's xyz + rgb + normalised xyz; 6 for the
+    classifiers, ModelNet40's xyz + normals). `grouping` goes to every
+    model and `compute_dtype` only to the models that take one, as in the
+    reference (`pctpu/nn/train.py:56-63`): the segmenters run in float32
+    whatever it says."""
     dev = resolve_device(device)
     if cfg.model not in MODEL_REGISTRY:
-        raise NotImplementedError(f"model {cfg.model!r} is not ported yet; "
-                                  f"ported: {sorted(MODEL_REGISTRY)}")
-    if cfg.compute_dtype != "float32":
-        raise NotImplementedError(
-            f"compute_dtype={cfg.compute_dtype!r} is not ported yet")
+        raise KeyError(f"model {cfg.model!r}; one of "
+                       f"{sorted(MODEL_REGISTRY)}")
+    cls = MODEL_REGISTRY[cfg.model]
+    if in_channels is None:
+        in_channels = 9 if cfg.model.startswith("semseg") else 6
     if generator is None:
         generator = torch.Generator().manual_seed(cfg.seed)
-    model = MODEL_REGISTRY[cfg.model](
-        num_classes=cfg.num_classes, use_xyz=cfg.use_xyz,
-        grouping=cfg.grouping, in_channels=in_channels, generator=generator)
-    return model.to(dev).eval()
+    kwargs = dict(num_classes=cfg.num_classes, use_xyz=cfg.use_xyz,
+                  grouping=cfg.grouping, in_channels=in_channels,
+                  generator=generator)
+    if "dtype" in inspect.signature(cls).parameters:
+        kwargs["dtype"] = compute_dtype(cfg)
+    return cls(**kwargs).to(dev).eval()
 
 
 @dataclasses.dataclass
@@ -171,8 +187,10 @@ def create_train_state(cfg: TrainConfig,
     """(model, TrainState): the configured model on `device` (CUDA unless
     "cpu" is asked for), initialised from `generator` (default: seeded
     with cfg.seed), its channel count taken from `sample_input`
-    ([..., N, C]; default 6), fresh optimizer moments, step 0."""
-    in_channels = 6 if sample_input is None else int(sample_input.shape[-1])
+    ([..., N, C]; default `build_model`'s), fresh optimizer moments, step
+    0."""
+    in_channels = (None if sample_input is None
+                   else int(sample_input.shape[-1]))
     model = build_model(cfg, device, generator, in_channels)
     opt_state = make_optimizer(cfg).init(list(model.parameters()))
     return model, TrainState(model, opt_state, 0)

@@ -3,32 +3,53 @@
   python -m pctpu_torch.nn.train_cli task=cls model=msg data=/path [key=value ...]
 
 `key=value` overrides over the preset config tree; `workdir=`,
-`resume=true`, `mode=train` and `device=` (default CUDA; `device=cpu`
-runs the plain versions of the kernels) as in the reference. Ported:
-task=cls (ModelNet40 classification, `ModelNet40Dataset` layout),
-models ssg and msg, mode=train. Not yet: task=semseg (the semseg models
-and the S3DIS dataset), task=kitti (the KITTI resampled dataset) and
-mode=test (`test_report`), each listed in ROADMAP queue A.
+`resume=true`, `mode=train|test` and `device=` (default CUDA; `device=cpu`
+runs the plain versions of the kernels) as in the reference. Tasks, each
+with models ssg and msg:
+  cls    - ModelNet40 classification (`ModelNet40Dataset` layout)
+  semseg - S3DIS semantic segmentation (indoor3d HDF5 layout)
+  kitti  - the 4-class KITTI object classifier (resampled dataset layout:
+           train.txt / test.txt)
+mode=test restores the newest checkpoint in `workdir` (fresh weights when
+there is none) and prints sklearn's classification report and the
+confusion matrix of the test split; it needs scikit-learn.
 """
 from __future__ import annotations
 
 import dataclasses
 import sys
 
+import numpy as np
+import torch
+
+from pctpu_torch.nn import checkpoint as ckpt
 from pctpu_torch.nn import config as C
-from pctpu_torch.nn.data import ModelNet40Dataset
-from pctpu_torch.nn.fit import fit
+from pctpu_torch.nn import train as T
+from pctpu_torch.nn.data import (KITTIResampledDataset, ModelNet40Dataset,
+                                 S3DISDataset)
+from pctpu_torch.nn.fit import fit, test_report
 
 PRESETS = {
     ("cls", "ssg"): C.MODELNET40_CLS_SSG,
     ("cls", "msg"): C.MODELNET40_CLS_MSG,
+    ("semseg", "ssg"): C.S3DIS_SEMSEG_SSG,
+    ("semseg", "msg"): C.S3DIS_SEMSEG_MSG,
+    ("kitti", "msg"): C.KITTI_CLS_MSG,
+    ("kitti", "ssg"): dataclasses.replace(C.KITTI_CLS_MSG, model="cls-ssg"),
 }
-NOT_PORTED = {
-    "semseg": "the semseg models (FeaturePropagation, ops/interpolate.py) "
-              "and the S3DIS dataset (ROADMAP queue A, item 2)",
-    "kitti": "the KITTI resampled dataset (ROADMAP queue A, item 2: the "
-             "datasets)",
-}
+
+
+def datasets(task: str, root: str, num_points: int):
+    """(train, test, class names or None) of a task's layout at `root`."""
+    if task == "cls":
+        train = ModelNet40Dataset(root, num_points, train=True)
+        return train, ModelNet40Dataset(root, num_points, train=False), \
+            train.categories
+    if task == "semseg":
+        return (S3DISDataset(root, num_points, train=True),
+                S3DISDataset(root, num_points, train=False), None)
+    train = KITTIResampledDataset(root, "train.txt")
+    return train, KITTIResampledDataset(root, "test.txt"), train.categories
 
 
 def parse_overrides(argv):
@@ -56,13 +77,10 @@ def main(argv=None):
     resume = kv.pop("resume", "false").lower() == "true"
     mode = kv.pop("mode", "train")
     device = kv.pop("device", None)
-    if task in NOT_PORTED:
-        raise NotImplementedError(f"task={task} waits for {NOT_PORTED[task]}")
     if (task, model) not in PRESETS:
         raise SystemExit(f"unknown task/model {task}/{model}")
-    if mode != "train":
-        raise NotImplementedError(
-            f"mode={mode} waits for test_report (ROADMAP queue A, item 2)")
+    if mode not in ("train", "test"):
+        raise SystemExit(f"unknown mode {mode}")
     cfg = PRESETS[(task, model)]
     fields = {f.name for f in dataclasses.fields(C.TrainConfig)}
     casts = {}
@@ -76,13 +94,26 @@ def main(argv=None):
 
     if data_root is None:
         raise SystemExit("data=<dataset root> is required")
-    train_ds = ModelNet40Dataset(data_root, cfg.num_points, train=True)
-    val_ds = ModelNet40Dataset(data_root, cfg.num_points, train=False)
-    out = fit(cfg, train_ds, val_ds, workdir=workdir, resume=resume,
-              tensorboard=True, device=device)
-    print(f"best val_acc: {out['best_val_acc']:.4f} "
-          f"@ epoch {out['best_epoch']}")
-    return out
+    train_ds, test_ds, class_names = datasets(task, data_root,
+                                              cfg.num_points)
+    if mode == "train":
+        out = fit(cfg, train_ds, test_ds, workdir=workdir, resume=resume,
+                  tensorboard=True, device=device)
+        print(f"best val_acc: {out['best_val_acc']:.4f} "
+              f"@ epoch {out['best_epoch']}")
+        return out
+    sample_pc, _ = test_ds[0]
+    model_obj, state = T.create_train_state(
+        cfg, torch.Generator().manual_seed(0), np.asarray(sample_pc),
+        device=device)
+    latest = ckpt.latest_checkpoint(workdir)
+    if latest:
+        state = ckpt.restore_checkpoint(latest[0], state)
+    rep = test_report(model_obj, test_ds, cfg.batch_size,
+                      class_names=class_names, device=device)
+    print(rep["report"])
+    print(rep["confusion_matrix"])
+    return rep
 
 
 if __name__ == "__main__":

@@ -5,7 +5,10 @@ For each centre, the first `nsample` point indices (in index order) with
 d^2 < radius^2; unfilled slots hold the FIRST hit's index; a centre with
 no hit gets idx 0 and valid all-False. Distances come from
 `pairwise_sqdist` (the |a|^2 + |b|^2 - 2ab expansion); the first hits are
-the `nsample` smallest column indices among hits, one `topk`.
+the `nsample` smallest column indices among hits, one `topk`. With
+nsample > N (the KITTI preset: 128 of 64 points) the slots past N are
+padding, as in kernel 12 and its plain version; the reference's
+`lax.top_k` raises there.
 """
 from __future__ import annotations
 
@@ -38,6 +41,9 @@ def ball_query(centers: torch.Tensor, points: torch.Tensor, radius: float,
                              points_mask)
         within = d2 < r2
         masked = torch.where(within, cols, NO_HIT)
+        if n < nsample:     # as kernel 12: the slots past N are padding
+            masked = torch.nn.functional.pad(masked, (0, nsample - n),
+                                             value=NO_HIT)
         out = torch.topk(masked, nsample, dim=-1, largest=False).values
         cnt = within.sum(dim=-1)
         first_hit = torch.where(cnt > 0, out[..., 0], 0)

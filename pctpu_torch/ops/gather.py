@@ -27,3 +27,12 @@ def group_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     m, k = idx.shape[-2], idx.shape[-1]
     out = _flat_row_gather(points, idx.reshape(idx.shape[:-2] + (m * k,)))
     return out.reshape(idx.shape[:-2] + (m, k, points.shape[-1]))
+
+
+def mask_group(grouped: torch.Tensor, valid: torch.Tensor,
+               fill: float = 0.0) -> torch.Tensor:
+    """Fill invalid grouped entries: grouped [..., M, K, C], valid
+    [..., M, K] -> grouped with `fill` where not valid."""
+    return torch.where(valid[..., None], grouped,
+                       torch.tensor(fill, dtype=grouped.dtype,
+                                    device=grouped.device))

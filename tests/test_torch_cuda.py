@@ -1275,3 +1275,110 @@ def test_pose_graph_card_matches_cpu(gen, cuda):
                  device="cpu", **kw)
         torch.testing.assert_close(card.poses.cpu(), cpu.poses, rtol=0,
                                    atol=1e-3)
+
+
+# kernel 12's launches in the segmenters at B 24 x 4,096 x 9: (M, N, C, K,
+# r) of semseg-ssg's four levels, then semseg-msg's fused scales
+SEMSEG_BALL_GROUP = [(1024, 4096, 9, 32, 0.1), (256, 1024, 67, 32, 0.2),
+                     (64, 256, 131, 32, 0.4), (16, 64, 259, 32, 0.8),
+                     (1024, 4096, 9, 16, 0.05), (256, 1024, 99, 16, 0.1),
+                     (256, 1024, 99, 32, 0.2), (64, 256, 259, 16, 0.2),
+                     (64, 256, 259, 32, 0.4), (16, 64, 515, 16, 0.4)]
+
+
+@pytest.mark.parametrize("m,n,c,k,radius", SEMSEG_BALL_GROUP)
+def test_ball_group_kernel_at_the_segmenters_shapes(gen, cuda, m, n, c, k,
+                                                    radius):
+    """Kernel 12 at every fused scale of semseg-ssg and semseg-msg (B cut
+    to 4), packed widths that are not a multiple of 4 (67, 99, 131, 259,
+    515) and 16 centres against 64 points: idx and rows bit-equal to the
+    plain version's."""
+    centers, packed = _ball_group_case(gen, cuda, 4, m, n, c)
+    _ball_group_equal(centers, packed, radius, k)
+
+
+@pytest.mark.parametrize("b,n,m,c", [(24, 1024, 256 * 32, 67),
+                                     (24, 256, 64 * 32, 131),
+                                     (24, 64, 16 * 32, 259)])
+def test_scatter_add_rows_kernel_at_the_segmenters_shapes(gen, cuda, b, n,
+                                                          m, c):
+    """Kernel 14 as kernel 12's backward at semseg-ssg's SA2-SA4 (rows of
+    67, 131 and 259 floats): bit-equal to the plain version's."""
+    g = _t(gen.normal(size=(b, m, c)).astype(np.float32), cuda)
+    idx = _t(gen.integers(0, n, (b, m)).astype(np.int32), cuda)
+    k = pallas_gather.scatter_add_rows_pallas(g, idx, n)
+    torch.cuda.synchronize()
+    assert torch.equal(k, pallas_gather.scatter_add_rows_plain(g, idx, n))
+
+
+def test_kernels_at_the_kitti_preset_shapes(gen, cuda):
+    """The KITTI preset (cls-msg on 64-point clouds): kernel 11 asked for
+    512 picks of 64 points returns every point, then index 0, as its
+    plain version; kernel 12 with nsample 128 > N = 64 equals its plain
+    version."""
+    pts = _t(_surface_clouds(gen, 8, 64), cuda)
+    k = pallas_fps.fps_pallas_batched(pts, 512)
+    elig = torch.ones((8, 64), dtype=torch.bool, device=cuda)
+    assert torch.equal(k, pallas_fps.fps_plain(pts, 512, elig))
+    assert bool((k[:, 64:] == 0).all())
+    centers = torch.gather(pts, 1, k.long()[..., None].expand(-1, -1, 3))
+    packed = torch.cat([pts, pts], -1)
+    for nsample, radius in ((16, 0.1), (32, 0.2), (128, 0.4)):
+        _ball_group_equal(centers, packed, radius, nsample)
+
+
+def _cpu_copy(model):
+    import copy
+    return copy.deepcopy(model).cpu()
+
+
+def test_semseg_ssg_forward_card_matches_cpu(gen, cuda, monkeypatch):
+    """semseg-ssg eval logits (B 2 x 4,096 x 9) on the card == the CPU's
+    within 1e-4, every scale through kernel 12 / its plain version (the
+    same neighbours on both sides), three-NN's distances equal on both;
+    with kernels 11 and 12 swapped for their plain versions within 1e-5."""
+    from pctpu_torch.models import pointnet2 as tp
+    from pctpu_torch.nn import train as T
+    from pctpu_torch.nn.config import S3DIS_SEMSEG_SSG
+    from pctpu_torch.ops import interpolate
+    model = T.build_model(S3DIS_SEMSEG_SSG, device=cuda)
+    xyz = _surface_clouds(gen, 2, 4096)
+    pc = _t(np.concatenate([xyz, gen.uniform(size=(2, 4096, 3)), xyz],
+                           axis=-1).astype(np.float32), cuda)
+    monkeypatch.setattr(tp, "fused_ok", lambda *a: True)
+    with torch.no_grad():
+        logits = model(pc)
+        cpu = _cpu_copy(model)(pc.cpu())
+    assert logits.shape == (2, 4096, 13)
+    torch.testing.assert_close(logits.cpu(), cpu, rtol=1e-4, atol=1e-4)
+    db = pc[:, :1024, :3].contiguous()
+    d_k, i_k = interpolate.three_nn(pc[..., :3], db)
+    d_c, i_c = interpolate.three_nn(pc[..., :3].cpu(), db.cpu())
+    assert torch.equal(d_k.cpu(), d_c) and torch.equal(i_k.cpu(), i_c)
+    monkeypatch.setattr(pallas_fps, "_launch_fps", pallas_fps.fps_plain)
+    monkeypatch.setattr(pallas_ballgroup, "_launch_ball_group",
+                        pallas_ballgroup.ball_group_plain)
+    with torch.no_grad():
+        plain = model(pc)
+    torch.testing.assert_close(logits, plain, rtol=0, atol=1e-5)
+
+
+def test_window_bf16_card_matches_cpu(gen, cuda):
+    """cls-ssg at window grouping with compute_dtype bfloat16 (workload
+    6's classifier), B 2 x 4,096 x 6: the card's logits within 1e-2 of
+    the CPU's largest (at least 1), the tolerance
+    `tests/test_torch_window.py` holds the CPU to against the reference
+    (cuBLAS and the CPU round each bf16 product after float32 sums in
+    other orders)."""
+    from pctpu_torch.nn import train as T
+    from pctpu_torch.nn.config import TrainConfig
+    model = T.build_model(TrainConfig(grouping="window",
+                                      compute_dtype="bfloat16"), device=cuda)
+    xyz = _surface_clouds(gen, 2, 4096)
+    pc = _t(np.concatenate([xyz, xyz], axis=-1), cuda)
+    with torch.no_grad():
+        logits = model(pc)
+        cpu = _cpu_copy(model)(pc.cpu())
+    assert logits.dtype == torch.float32
+    torch.testing.assert_close(logits.cpu(), cpu, rtol=0, atol=1e-2 * max(
+        1.0, float(cpu.abs().max())))

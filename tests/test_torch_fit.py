@@ -158,9 +158,10 @@ def test_modelnet40_dataset_matches_jax(tmp_path, cache):
 
 
 def test_train_cli(tmp_path, monkeypatch):
-    """task=cls model=ssg with key=value overrides trains through `fit`
-    on device=cpu; the tasks and modes not ported raise and name what they
-    wait for."""
+    """task=cls model=msg with key=value overrides trains through `fit`
+    on device=cpu; task=semseg and task=kitti hand `fit` their presets
+    and datasets (S3DIS HDF5 and KITTI CSV layouts written here);
+    mode=test reports on the test split; an unknown key exits."""
     root = str(tmp_path / "mn40")
     _modelnet_layout(root, np.random.default_rng(4))
     seen = {}
@@ -175,14 +176,54 @@ def test_train_cli(tmp_path, monkeypatch):
     assert seen["cfg"].model == "cls-msg" and seen["cfg"].epochs == 2
     assert seen["cfg"].lr == 0.01 and seen["cfg"].use_xyz is False
     assert seen["device"] == "cpu" and seen["n"] == 4
-    with pytest.raises(NotImplementedError, match="semseg"):
-        train_cli.main(["task=semseg", f"data={root}"])
-    with pytest.raises(NotImplementedError, match="KITTI"):
-        train_cli.main(["task=kitti", "model=msg", f"data={root}"])
-    with pytest.raises(NotImplementedError, match="test_report"):
-        train_cli.main(["task=cls", "mode=test", f"data={root}"])
+    s3dis, kitti = str(tmp_path / "s3dis"), str(tmp_path / "kitti")
+    rng = np.random.default_rng(5)
+    _s3dis_layout(s3dis)
+    _kitti_layout(kitti, rng)
+    train_cli.main(["task=semseg", f"data={s3dis}", "device=cpu"])
+    assert seen["cfg"].model == "semseg-ssg" and seen["n"] == 2
+    assert seen["cfg"].num_classes == 13 and seen["cfg"].batch_size == 24
+    train_cli.main(["task=kitti", "model=msg", f"data={kitti}",
+                    "device=cpu"])
+    assert seen["cfg"].model == "cls-msg" and seen["n"] == 4
+    assert seen["cfg"].num_points == 64 and seen["cfg"].grad_clip == 1.0
+    rep = train_cli.main(["task=cls", "mode=test", f"data={root}",
+                          "device=cpu", "batch_size=2", "num_points=64",
+                          "num_classes=2", f"workdir={tmp_path / 'none'}"])
+    assert rep["confusion_matrix"].shape == (2, 2)
+    assert rep["confusion_matrix"].sum() == 2
     with pytest.raises(SystemExit, match="unknown config key"):
         train_cli.main(["task=cls", f"data={root}", "nope=1"])
+
+
+def _s3dis_layout(root):
+    """One HDF5 file of 4 blocks [4, 32, 9], the last two Area_5's."""
+    import h5py
+    os.makedirs(root)
+    rng = np.random.default_rng(3)
+    with h5py.File(os.path.join(root, "ply_data_all_0.h5"), "w") as h:
+        h["data"] = rng.uniform(size=(4, 32, 9)).astype(np.float32)
+        h["label"] = rng.integers(0, 13, (4, 32)).astype(np.uint8)
+    with open(os.path.join(root, "all_files.txt"), "w") as f:
+        f.write("indoor3d_sem_seg_hdf5_data/ply_data_all_0.h5\n")
+    with open(os.path.join(root, "room_filelist.txt"), "w") as f:
+        f.write("Area_1_a\nArea_2_b\nArea_5_c\nArea_5_d\n")
+
+
+def _kitti_layout(root, rng):
+    """Four 64 x 6 CSV clouds a split, one per category."""
+    cats = ["Car", "Pedestrian", "Cyclist", "Misc"]
+    for c in cats:
+        os.makedirs(os.path.join(root, c))
+    with open(os.path.join(root, "object_names.txt"), "w") as f:
+        f.write("\n".join(cats) + "\n")
+    for split, base in (("train", 0), ("test", 10)):
+        for i, c in enumerate(cats):
+            np.savetxt(os.path.join(root, c, f"{base + i:06d}.txt"),
+                       rng.normal(size=(64, 6)), delimiter=",")
+        with open(os.path.join(root, f"{split}.txt"), "w") as f:
+            f.write("\n".join(f"{c}_{base + i}"
+                              for i, c in enumerate(cats)) + "\n")
 
 
 @pytest.mark.parametrize("n,m", [(128, 512), (5, 9)])

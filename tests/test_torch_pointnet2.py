@@ -152,10 +152,17 @@ def test_fused_ok_picks_the_reference_scales():
     """The rule fuses exactly these scales (packed channels 3 + features,
     rounded up to 8): cls-msg SA1 all three (cp8 8), SA2 nsample 32 only
     (cp8 328: 5.37 MB; 64 and 128 exceed 6 MiB); cls-ssg both (cp8 8,
-    136); and nothing off the card."""
-    channels = {"cls-msg": [6, 323], "cls-ssg": [6, 131]}
+    136); semseg-ssg all four (packed 9, 67, 131, 259); semseg-msg all
+    but SA4's nsample 32 (packed 515: 32 x 520 x 512 B > 6 MiB); and
+    nothing off the card."""
+    channels = {"cls-msg": [6, 323], "cls-ssg": [6, 131],
+                "semseg-ssg": [9, 67, 131, 259],
+                "semseg-msg": [9, 99, 259, 515]}
     want = {"cls-msg": [[True, True, True], [True, False, False]],
-            "cls-ssg": [[True], [True]]}
+            "cls-ssg": [[True], [True]],
+            "semseg-ssg": [[True]] * 4,
+            "semseg-msg": [[True, True]] * 3 + [[True, False]]}
+    assert set(tp.MODEL_REGISTRY) == set(want)
     for name, cls in tp.MODEL_REGISTRY.items():
         got = [[tp.fused_ok(ns, ch, True) for ns in spec[2]]
                for spec, ch in zip(cls.SA_SPECS, channels[name])]
@@ -264,8 +271,17 @@ def test_entry_points_raise_without_cuda(monkeypatch):
 
 
 def test_build_model_refuses_what_is_not_ported():
-    for cfg in (tconfig.S3DIS_SEMSEG_SSG,
-                tconfig.TrainConfig(compute_dtype="bfloat16"),
-                tconfig.TrainConfig(grouping="window")):
-        with pytest.raises(NotImplementedError):
-            T.build_model(cfg, device="cpu")
+    """What build_model refused before the segmenters, window grouping
+    and bfloat16 were ported now builds on the CPU and runs a forward:
+    finite float32 logits of the model's shape."""
+    pc = torch.from_numpy(_clouds(2, b=1, n=512))
+    for cfg, shape in ((tconfig.S3DIS_SEMSEG_SSG, (1, 512, 13)),
+                       (tconfig.TrainConfig(compute_dtype="bfloat16"),
+                        (1, 40)),
+                       (tconfig.TrainConfig(grouping="window"), (1, 40))):
+        model = T.build_model(cfg, device="cpu")
+        x = torch.cat([pc, pc[..., :3]], -1) if shape[-1] == 13 else pc
+        with torch.no_grad():
+            logits = model(x)
+        assert logits.shape == shape and logits.dtype == torch.float32
+        assert bool(torch.isfinite(logits).all())
