@@ -63,7 +63,20 @@ hand-written kernel against its plain PyTorch version:
      grouping and compute_dtype bfloat16 (P10's clouds), and `semseg-ssg`
      at B 16 x 4,096 x 9 with window grouping (P16's blocks, Morton-sorted
      with their labels; float32, as the segmenters take no dtype), 1 + 5
-     train steps each; no kernel runs there.
+     train steps each; no kernel runs there;
+  P20 `segment_ground_and_objects` (k-NN normals, plane RANSAC, DBSCAN;
+     default config) on P1's 124,668-point scan: no kernel; the stages
+     timed apart, a second run with the same draws bit for bit, and one
+     mini-world frame on the card equal to the CPU with the same draws;
+  P21 the mini-world task loop (`pipelines/miniworld.py`: 10 train and 4
+     eval frames written under build/chip_smoke_mini/, extract, training
+     set, `fit` of `cls-ssg` on 64-point clusters for 4 epochs, held-out
+     `evaluate`, `detect_frame`, easy-BEV AP): kernels 11 and 12 (2 each
+     a forward) and 14 (1 a train step);
+  P22 the clustering harness: `K_Means`, `GMM`, `spetral_clustering`
+     and `DBSCAN` on numpy versions of `cluster_compare`'s six datasets
+     (500 points), on the card and on the CPU: kernel 14 in k-means'
+     centre sums.
 
 P13-P14 build their worlds and scans from fixed seeds as `bench.py` and
 the test do (rng 5 and 0); P15 writes its files under
@@ -93,7 +106,14 @@ Phases:
      versions' and 1e-4 of the CPU's on 4 clouds, P18's gradients within
      5e-2 of their norms of the CPU's; workload 6: finite losses, the
      logits of 2 clouds within 1e-2 of the largest (bf16) and 1e-4
-     (float32) of the CPU's; SLAM: bench.py's gates, >= 1 closure and an optimized
+     (float32) of the CPU's; P20: a plane with |n_z| > 0.99 and (the
+     synthetic scan) |d| < 0.1 m, >= 90% of the points below 5 cm ground,
+     >= 1 object; P21: the reference test's gates, 10 frames extracted,
+     val and held-out accuracy >= 0.9, easy-BEV AP >= 0.7 for Car,
+     Pedestrian and Cyclist; P22: k-means labels and centres (1e-5), GMM
+     (1e-4, the CPU run for as many EM steps as the card's), spectral and
+     DBSCAN partitions equal to the CPU's; SLAM:
+     bench.py's gates, >= 1 closure and an optimized
      ATE below the raw one and 0.8 m; the figure-eight: the test's gates;
      the driver: no failed pair, every pair within the bound); its speed
      (CUDA events, or the host clock around a synchronised call);
@@ -180,6 +200,11 @@ TRAIN_STEPS = 5                     # timed train steps, after 1 warm-up
 SEM_REQUESTS, SEM_BATCH, SEM_POINTS = 4, 24, 4096   # S3DIS_SEMSEG_*
 SEM_CPU = 4                         # clouds held against the CPU
 W6_SEM_BATCH = 16                   # bench.py:375 semseg-ssg batch
+MW_TRAIN, MW_EVAL, MW_EPOCHS = 10, 4, 4   # tests/test_pipelines.py:297
+# the JAX package's figures for that loop on CPU devices (README.md:600-604)
+MW_JAX_CPU = dict(val_acc=1.00, ap_easy_bev=dict(Car=1.00, Cyclist=1.00,
+                                                 Pedestrian=0.75))
+CLUSTER_N = 500                     # cluster_compare.py's n_samples
 ODO_FRAMES = 32                     # bench.py ODO_FRAMES
 ODO_CFG = dict(voxel_leaf=0.4, icp_iters=30, icp_dist_thresh=3.0,
                keyframe_every=4, closure_radius=13.0, closure_min_gap=3,
@@ -1299,6 +1324,66 @@ def profile(name, fn, torch, top=12):
 
 
 # ---------------------------------------------------------------------------
+# P20-P22: segmentation, the mini-world task loop, the clustering harness
+# ---------------------------------------------------------------------------
+
+def events_ms(fn, torch):
+    """(milliseconds of one call of fn between CUDA events, its result)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end), out
+
+
+def cpu_gumbel_sampler(seed, torch, gumbel_sampler):
+    """The plane's triples as the Gumbel top-3 of noise drawn on the CPU
+    from `seed` at every call, whatever device the vote mask is on: one
+    sampler for the card and the CPU."""
+    def sample(vote_mask, h):
+        draw = gumbel_sampler(torch.Generator().manual_seed(seed))
+        return draw(vote_mask.cpu(), h).to(vote_mask.device)
+    return sample
+
+
+def cluster_datasets(rng, n=CLUSTER_N):
+    """Numpy versions of the reference's six datasets
+    (`pctpu/pipelines/cluster_compare.py:19-41`: noisy circles and moons,
+    blobs of varied spread, anisotropic blobs, blobs, uniform noise), each
+    standardised: [(name, X [n,2] f32, clusters)]."""
+    def blobs(std, centres=3):
+        c = rng.uniform(-10, 10, (centres, 2))
+        lab = rng.integers(0, centres, n)
+        return c[lab] + rng.normal(size=(n, 2)) * np.asarray(std)[lab, None]
+
+    t = np.linspace(0, 2 * np.pi, n // 2, endpoint=False)
+    circles = np.concatenate([np.stack([np.cos(t), np.sin(t)], 1),
+                              0.5 * np.stack([np.cos(t), np.sin(t)], 1)])
+    u = np.linspace(0, np.pi, n // 2)
+    moons = np.concatenate([np.stack([np.cos(u), np.sin(u)], 1),
+                            np.stack([1 - np.cos(u), 0.5 - np.sin(u)], 1)])
+    sets = [
+        ("noisy_circles", circles + rng.normal(scale=0.05, size=(n, 2)), 2),
+        ("noisy_moons", moons + rng.normal(scale=0.05, size=(n, 2)), 2),
+        ("varied", blobs([1.0, 2.5, 0.5]), 3),
+        ("aniso", blobs([1.0] * 3) @ np.array([[0.6, -0.6], [-0.4, 0.8]]),
+         3),
+        ("blobs", blobs([1.0] * 3), 3),
+        ("no_structure", rng.random((n, 2)), 3),
+    ]
+    return [(name, ((x - x.mean(0)) / x.std(0)).astype(np.float32), k)
+            for name, x, k in sets]
+
+
+def same_partition(a, b):
+    """Labels a and b split the points alike (a bijection of ids)."""
+    a, b = np.asarray(a).tolist(), np.asarray(b).tolist()
+    return len(set(zip(a, b))) == len(set(a)) == len(set(b))
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -1335,6 +1420,14 @@ def main(argv=None):
                                      pallas_nn, voxel)
         from pctpu_torch.parallel import pair_sweep, posegraph
         from pctpu_torch.pipelines import odometry, registration_driver
+        from pctpu_torch import cluster
+        from pctpu_torch.cluster.dbscan import dbscan
+        from pctpu_torch.cluster.plane_ransac import (gumbel_sampler,
+                                                      segment_ground)
+        from pctpu_torch.nn.data import KITTIResampledDataset
+        from pctpu_torch.ops.normals import estimate_normals
+        from pctpu_torch.pipelines import (detect, kitti_etl, kitti_eval,
+                                           miniworld, segmentation, trainset)
         from pctpu_torch.register import icp, pipeline
         from pctpu_torch.register.ransac import generator_sampler
     except ImportError as e:
@@ -2477,15 +2570,15 @@ def main(argv=None):
     print(fpfh_line("the kernel-9 phase", fp9))
     metrics["fpfh_launches"]["kernel-9 phase"] = fp9
     k9 = {}
-    for (case, (p_, m_, r_, kw_)), args in zip(k9_cases.items(), r9.calls):
-        amat, dbmat, cent, base, nt, q_tile, db_tile, r2 = args
-        mk, mp_ = pallas_fpfh.moments(*args), pallas_fpfh.moments_plain(*args)
+    for (case, (p_, m_, r_, kw_)), a9 in zip(k9_cases.items(), r9.calls):
+        amat, dbmat, cent, base, nt, q_tile, db_tile, r2 = a9
+        mk, mp_ = pallas_fpfh.moments(*a9), pallas_fpfh.moments_plain(*a9)
         torch.cuda.synchronize()
         err, unequal, ulp1 = ulp_check(mk, mp_, torch)
         need(ulp1, "moments vs plain beyond one ulp", case, err)
         # the count channel equal: no pair within the radius was pruned
         need(torch.equal(mk[..., 9], mp_[..., 9]), "moments counts", case)
-        need(torch.equal(pallas_fpfh.moments(*args), mk), "moments repeat",
+        need(torch.equal(pallas_fpfh.moments(*a9), mk), "moments repeat",
              case)
         # normals against the dense reference default where the least
         # eigenvector is well defined: at least 3 neighbours, lambda1 >
@@ -2516,7 +2609,7 @@ def main(argv=None):
         # centroid shift gives
         gap = 1.0 - float(dots.min())
         need(gap < 1e-4, "fused vs dense normals", case, gap)
-        ops, byt, pairs = moments_work(args, mp_)
+        ops, byt, pairs = moments_work(a9, mp_)
         bms, by = bound(byt, ops)
         plan = pallas_fpfh.moments_plan(
             amat.shape[0], amat.shape[1], q_tile,
@@ -2526,10 +2619,10 @@ def main(argv=None):
             checked_normals=int(well.sum()),
             excluded_normals=int((m_ & ~well).sum()),
             min_dot_vs_dense=float(dots.min()), plan=plan,
-            ms=graph_ms([lambda a=args: pallas_fpfh.moments(*a)] * 10) / 10,
-            events_ms=cuda_ms(lambda a=args: pallas_fpfh.moments(*a),
+            ms=graph_ms([lambda a=a9: pallas_fpfh.moments(*a)] * 10) / 10,
+            events_ms=cuda_ms(lambda a=a9: pallas_fpfh.moments(*a),
                               reps=10),
-            plain_ms=cuda_ms(lambda a=args: pallas_fpfh.moments_plain(*a),
+            plain_ms=cuda_ms(lambda a=a9: pallas_fpfh.moments_plain(*a),
                              reps=2),
             dense_ms=cuda_ms(lambda: fpfh_dense.normals_radius_dense(
                 p_, m_, radius=r_), reps=5),
@@ -2562,6 +2655,297 @@ def main(argv=None):
         bound_by="operations" if all(v["bound_by"] == "operations"
                                      for v in k9.values()) else "bytes",
         library_ms=None, per_case=k9)
+
+    # ---- P20 segmentation of the full scan (no kernel) --------------------
+    seg_cfg = segmentation.SegmentationConfig()
+    pc20 = PointCloud.from_numpy(full, device=dev)
+
+    def seg_full():
+        return segmentation.segment_ground_and_objects(
+            pc20.points, pc20.mask,
+            generator=torch.Generator(device=dev).manual_seed(args.seed),
+            cfg=seg_cfg)
+
+    seg_full()                                                  # warm-up
+    t0 = time.perf_counter()
+    out20 = paths.run("segmentation", seg_full, {})
+    seg_s = time.perf_counter() - t0
+    again = seg_full()
+    need(all(torch.equal(a, b) for a, b in zip(out20, again)),
+         "P20 a second run with the same draws")
+    # the stages apart: normals (k-NN), the plane (RANSAC), DBSCAN
+    n_ms, normals20 = events_ms(lambda: estimate_normals(
+        pc20.points, mask=pc20.mask, k=seg_cfg.normal_k), torch)
+    r_ms, (ground20, plane20) = events_ms(lambda: segment_ground(
+        pc20.points, mask=pc20.mask, dist_thresh=seg_cfg.ground_dist,
+        num_hypotheses=seg_cfg.ransac_hypotheses,
+        generator=torch.Generator(device=dev).manual_seed(args.seed),
+        normals=normals20, z_cos_thresh=seg_cfg.z_cos_thresh), torch)
+    fg20 = pc20.mask & ~ground20 & segmentation.in_fov(pc20.points, seg_cfg)
+    d_ms, ids20 = events_ms(lambda: dbscan(
+        pc20.points, seg_cfg.dbscan_eps, seg_cfg.dbscan_min_pts, mask=fg20,
+        k_cap=seg_cfg.dbscan_k_cap), torch)
+    need(torch.equal(ground20, out20.ground_mask)
+         and torch.equal(torch.where(fg20, ids20, -1), out20.object_ids),
+         "P20 stages apart = segment_ground_and_objects")
+    nz, off = abs(float(plane20.normal[2])), float(plane20.offset)
+    low = pc20.mask & (pc20.points[:, 2] < 0.05)
+    low_ground = float((out20.ground_mask & low).sum() / low.sum())
+    obj20 = out20.object_ids[out20.object_ids >= 0]
+    n_obj20 = int(torch.unique(obj20).numel())
+    need(nz > 0.99 and n_obj20 >= 1, "P20 plane, objects", nz, n_obj20)
+    if not args.scan:       # the synthetic scan: ground z = 0, sensor 1.73 m
+        need(abs(off) < 0.1 and low_ground >= 0.9, "P20 ground", off,
+             low_ground)
+    # one mini-world frame on the card and on the CPU, the same draws
+    seg_dir = ROOT / "build" / "chip_smoke_seg"
+    shutil.rmtree(seg_dir, ignore_errors=True)
+    fid = miniworld.generate_dataset(str(seg_dir), 1, seed=0)[0]
+    mw_pts = io.read_velodyne_bin(str(seg_dir / "velodyne" / (fid + ".bin")))
+    mw = []
+    for d in (dev, torch.device("cpu")):
+        pc = PointCloud.from_numpy(mw_pts, device=d)
+        mw.append(segmentation.segment_ground_and_objects(
+            pc.points, pc.mask, sampler=cpu_gumbel_sampler(
+                args.seed, torch, gumbel_sampler), cfg=miniworld.seg_config()))
+    for name in ("ground_mask", "object_ids", "foreground"):
+        need(torch.equal(getattr(mw[0], name).cpu(), getattr(mw[1], name)),
+             "P20 mini-world frame, card vs CPU", name)
+    mw_obj = int(torch.unique(mw[1].object_ids[mw[1].object_ids >= 0]).numel())
+    metrics["segmentation"] = dict(
+        points=len(full),
+        entry_s=seg_s, normals_ms=n_ms, ransac_ms=r_ms, dbscan_ms=d_ms,
+        plane_normal=plane20.normal.tolist(), plane_offset=off,
+        ground_points=int(out20.ground_mask.sum()),
+        low_points_ground_share=low_ground,
+        foreground_points=int(out20.foreground.sum()), objects=n_obj20,
+        miniworld_frame_points=len(mw_pts), miniworld_frame_objects=mw_obj)
+    print(f"P20 segmentation of the {len(full):,}-point scan (default "
+          f"config): {seg_s:.2f} s; normals (k-NN 9) {n_ms:.1f} ms, RANSAC "
+          f"({seg_cfg.ransac_hypotheses} planes) {r_ms:.1f} ms, DBSCAN "
+          f"{d_ms:.1f} ms (CUDA events); plane n_z {nz:.5f}, d {off:.4f} m; "
+          f"{100 * low_ground:.1f}% of the points below 5 cm are ground; "
+          f"{int(out20.foreground.sum()):,} foreground points, {n_obj20} "
+          f"objects; a repeat bit for bit; a {len(mw_pts):,}-point "
+          f"mini-world frame ({mw_obj} objects) equal on the card and the CPU")
+    report["profile_segmentation"] = profile("P20 segmentation", seg_full,
+                                             torch)
+    del pc20, out20, again, normals20, ground20, fg20, ids20
+    torch.cuda.empty_cache()
+
+    # ---- P21 the mini-world task loop: kernels 11, 12, 14 -----------------
+    mw_dir = ROOT / "build" / "chip_smoke_mini"
+    shutil.rmtree(mw_dir, ignore_errors=True)
+    raw = mw_dir / "kitti"
+    mw_ids = miniworld.generate_dataset(str(raw), MW_TRAIN + MW_EVAL, seed=0)
+    mw_cfg = nncfg.TrainConfig(model="cls-ssg", num_classes=4, num_points=64,
+                               batch_size=16, epochs=MW_EPOCHS, lr=1e-3,
+                               grad_clip=1.0, decay_step=1e9, seed=0)
+    det_cfg = detect.DetectConfig(batch_size=8)
+    stage21 = {}
+
+    def task_loop():
+        """run_task_loop's stages, with fit.evaluate in place of
+        test_report (the card's machine has no scikit-learn)."""
+        t = time.perf_counter()
+        stats = kitti_etl.extract_dataset(
+            str(raw), str(mw_dir / "extracted"), frame_ids=mw_ids[:MW_TRAIN],
+            seg_cfg=miniworld.seg_config(), seed=0, device=dev)
+        stage21["extract_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        counts = trainset.generate_training_set(
+            str(mw_dir / "extracted"), str(mw_dir / "resampled"),
+            num_sample_points=64, seed=0)
+        trainset.generate_train_test_split(str(mw_dir / "resampled"), seed=0)
+        train_ds = KITTIResampledDataset(str(mw_dir / "resampled"),
+                                         "train.txt")
+        val_ds = KITTIResampledDataset(str(mw_dir / "resampled"), "test.txt")
+        stage21["trainset_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        out = fit.fit(mw_cfg, train_ds, val_ds, workdir=str(mw_dir / "run"),
+                      augment_pipeline=(), eval_interval=1,
+                      early_stop_patience=MW_EPOCHS, device=dev)
+        torch.cuda.synchronize()
+        stage21["fit_s"] = time.perf_counter() - t
+        held = fit.evaluate(out["model"], val_ds, mw_cfg.batch_size,
+                            device=dev)
+        t = time.perf_counter()
+        det_dir = mw_dir / "detections"
+        det_dir.mkdir(parents=True, exist_ok=True)
+        gt_files, det_files = [], []
+        for f in mw_ids[MW_TRAIN:]:
+            rows_ = detect.detect_frame(
+                io.read_velodyne_bin(str(raw / "velodyne" / (f + ".bin"))),
+                io.read_kitti_calib(str(raw / "calib" / (f + ".txt"))),
+                out["model"], out["state"], cfg=det_cfg,
+                seg_cfg=miniworld.seg_config(), seed=0, device=dev)
+            (det_dir / (f + ".txt")).write_text(
+                "\n".join(rows_) + ("\n" if rows_ else ""))
+            det_files.append(str(det_dir / (f + ".txt")))
+            gt_files.append(str(raw / "label_2" / (f + ".txt")))
+        torch.cuda.synchronize()
+        stage21["detect_s"] = time.perf_counter() - t
+        ap = kitti_eval.evaluate_detections(gt_files, det_files, metric="bev")
+        return dict(stats=stats, counts=counts, n_train=len(train_ds),
+                    n_val=len(val_ds), fit=out, held=held, ap=ap)
+
+    def task_launches(res):
+        b = mw_cfg.batch_size
+        forwards = (res["fit"]["steps"] + (MW_EPOCHS + 1) * (res["n_val"] // b)
+                    + sum(-(-a[2].shape[0] // det_cfg.batch_size)
+                          for a in r_pred.calls))
+        return {"fps_pallas_batched": 2 * forwards, "ball_group": 2 * forwards,
+                "scatter_add_rows": res["fit"]["steps"]}
+
+    t0 = time.perf_counter()
+    with Recorder(detect, "predict_clusters") as r_pred, \
+            Recorder(pallas_fps, "_launch_fps") as rf21, \
+            Recorder(pallas_ballgroup, "_launch_ball_group") as rg21, \
+            Recorder(pallas_gather, "_launch_scatter_add_rows") as rs21:
+        res21 = paths.run("miniworld", task_loop, task_launches)
+    mw_s = time.perf_counter() - t0
+    ap_easy = {c: res21["ap"][c]["easy"] for c in ("Car", "Pedestrian",
+                                                  "Cyclist")}
+    val_acc, held_acc = res21["fit"]["best_val_acc"], res21["held"]["acc"]
+    print(f"P21 mini-world task loop ({MW_TRAIN} train + {MW_EVAL} eval "
+          f"frames, cls-ssg at 64 points, {MW_EPOCHS} epochs, seed 0) in "
+          f"{mw_s:.1f} s: extract {stage21['extract_s']:.1f} s "
+          f"({res21['stats'].frames_ok} frames ok), training set "
+          f"{stage21['trainset_s']:.1f} s ({res21['n_train']} train / "
+          f"{res21['n_val']} held-out clouds), fit {stage21['fit_s']:.1f} s "
+          f"({res21['fit']['steps']} steps), detect "
+          f"{stage21['detect_s']:.1f} s; val-acc {val_acc:.4f} (JAX on CPU "
+          f"{MW_JAX_CPU['val_acc']:.2f}), held-out acc {held_acc:.4f}; easy "
+          f"BEV AP " + ", ".join(
+              f"{c} {v:.4f} (JAX {MW_JAX_CPU['ap_easy_bev'][c]:.2f})"
+              for c, v in ap_easy.items()))
+    need(res21["stats"].frames_ok == MW_TRAIN, "P21 frames", res21["stats"])
+    need(val_acc >= 0.9 and held_acc >= 0.9, "P21 accuracy", val_acc,
+         held_acc)
+    need(all(v >= 0.7 for v in ap_easy.values()), "P21 easy BEV AP", ap_easy)
+    # every kernel 11, 12, 14 launch of the loop against its plain version
+    with torch.no_grad():
+        check_fps(pallas_fps, rf21.calls, torch)
+        bg21_err, bg21_boundary, _ = check_ball_group(
+            pallas_ballgroup, ball_query, gather, rg21.calls, torch)
+    for args14 in rs21.calls:
+        need(torch.equal(pallas_gather._launch_scatter_add_rows(*args14),
+                         pallas_gather.scatter_add_rows_plain(*args14)),
+             "P21 ball_group backward vs plain", tuple(args14[0].shape))
+    # one predict_clusters call (the first eval frame's clusters), its
+    # launches recorded apart and timed beside their bounds
+    with Recorder(pallas_fps, "_launch_fps") as rfp, \
+            Recorder(pallas_ballgroup, "_launch_ball_group") as rgp:
+        detect.predict_clusters(*r_pred.calls[0])
+        torch.cuda.synchronize()
+    with torch.no_grad():
+        check_fps(pallas_fps, rfp.calls, torch)
+        _, _, bgp_work = check_ball_group(pallas_ballgroup, ball_query,
+                                          gather, rgp.calls, torch)
+    pred_rows = dict(
+        fps=time_launches(pallas_fps._launch_fps, pallas_fps.fps_plain,
+                          rfp.calls, [fps_work(a) for a in rfp.calls]),
+        ball_group=time_launches(pallas_ballgroup._launch_ball_group,
+                                 pallas_ballgroup.ball_group_plain,
+                                 rgp.calls, bgp_work))
+    rows["fps_pallas_batched"]["kitti_predict"] = pred_rows["fps"]
+    rows["ball_group"]["kitti_predict"] = pred_rows["ball_group"]
+    rows["ball_group"]["max_abs_err"] = max(rows["ball_group"]["max_abs_err"],
+                                            bg21_err)
+    metrics["miniworld"] = dict(
+        seconds=mw_s, **stage21, frames_ok=res21["stats"].frames_ok,
+        objects=res21["stats"].objects, class_counts=res21["counts"],
+        train_clouds=res21["n_train"], held_out_clouds=res21["n_val"],
+        steps=res21["fit"]["steps"], val_acc=val_acc, held_out_acc=held_acc,
+        ap_bev=res21["ap"], jax_cpu=MW_JAX_CPU,
+        predict_clusters_clouds=int(r_pred.calls[0][2].shape[0]),
+        predict_launches=dict(fps=len(rfp.calls), ball_group=len(rgp.calls)),
+        predict_kernel11_ms=pred_rows["fps"]["ms"],
+        predict_kernel12_ms=pred_rows["ball_group"]["ms"])
+    print(f"   kernels 11, 12, 14 vs plain on P21: FPS idx identical on "
+          f"{len(rf21.calls)} launches, ball_group equal on "
+          f"{len(rg21.calls)} ({bg21_boundary} centres with a boundary point "
+          f"vs ball_query), kernel 14 bit-equal on {len(rs21.calls)}; one "
+          f"predict_clusters call ({metrics['miniworld']['predict_clusters_clouds']}"
+          f" clusters): kernel 11 {pred_rows['fps']['ms']:.4f} ms (bound "
+          f"{pred_rows['fps']['bound_ms']:.4f}), kernel 12 "
+          f"{pred_rows['ball_group']['ms']:.4f} ms (bound "
+          f"{pred_rows['ball_group']['bound_ms']:.4f})")
+    f0 = mw_ids[MW_TRAIN]
+    report["profile_detect_frame"] = profile(
+        "P21 detect_frame", lambda: detect.detect_frame(
+            io.read_velodyne_bin(str(raw / "velodyne" / (f0 + ".bin"))),
+            io.read_kitti_calib(str(raw / "calib" / (f0 + ".txt"))),
+            res21["fit"]["model"], res21["fit"]["state"], cfg=det_cfg,
+            seg_cfg=miniworld.seg_config(), seed=0, device=dev), torch)
+    del res21, rf21, rg21, rs21, r_pred
+    torch.cuda.empty_cache()
+
+    # ---- P22 the clustering harness: kernel 14 in k-means -----------------
+    sets22 = cluster_datasets(np.random.default_rng([args.seed, 22]))
+    shims = (("KMeans", lambda k, d: cluster.K_Means(k, device=d)),
+             ("GMM", lambda k, d: cluster.GMM(k, device=d)),
+             ("Spectral", lambda k, d: cluster.spetral_clustering(
+                 k, nnk=10, device=d)),
+             ("DBSCAN", lambda k, d: cluster.DBSCAN(radius=0.3, Min_Pts=5,
+                                                    device=d)))
+    fits22 = {}
+
+    def fit_all():
+        for ds, x, k in sets22:
+            for name, make in shims:
+                t = time.perf_counter()
+                fits22[ds, name] = make(k, dev).fit(x)
+                fits22[ds, name, "ms"] = (time.perf_counter() - t) * 1e3
+
+    fit_all()                                                   # warm-up
+    with Recorder(pallas_gather, "_launch_scatter_add_rows") as rs22:
+        paths.run("clusters", fit_all,
+                  lambda _: {"scatter_add_rows": len(rs22.calls)})
+    need(len(rs22.calls) > 0, "P22 kernel 14 launches")
+    for args14 in rs22.calls:
+        need(torch.equal(pallas_gather._launch_scatter_add_rows(*args14),
+                         pallas_gather.scatter_add_rows_plain(*args14)),
+             "P22 k-means centre sums vs plain", tuple(args14[0].shape))
+    table22 = {}
+    for ds, x, k in sets22:
+        cpu = {name: make(k, "cpu").fit(x) for name, make in shims}
+        km, kc = fits22[ds, "KMeans"], cpu["KMeans"]
+        need(np.array_equal(km.labels_, kc.labels_)
+             and np.abs(km.cluster_centers_ - kc.cluster_centers_).max()
+             <= 1e-5, "P22 k-means card vs CPU", ds)
+        # EM's stop rule (prev_nll - nll >= tol) reads a float32 nll of
+        # ~1e3, whose ulp is a tenth of tol, so where the decrease nears
+        # tol the two devices may stop iterations apart: the CPU runs as
+        # many EM steps as the card did before the two are compared
+        g = fits22[ds, "GMM"].state
+        gc = cluster.GMM(k, max_iter=g.n_iter, tol=float("-inf"),
+                         device="cpu").fit(x).state
+        gmm_err = max(float((getattr(g, f).cpu() - getattr(gc, f)).abs().max())
+                      for f in ("means", "covs", "weights"))
+        need(gmm_err <= 1e-4, "P22 GMM card vs CPU", ds, gmm_err)
+        for name in ("Spectral", "DBSCAN"):
+            need(same_partition(fits22[ds, name].labels_, cpu[name].labels_),
+                 "P22 partition card vs CPU", ds, name)
+        table22[ds] = {name: fits22[ds, name, "ms"] for name, _ in shims}
+        table22[ds]["gmm_err_vs_cpu"] = gmm_err
+        table22[ds]["gmm_iters"] = [g.n_iter, cpu["GMM"].state.n_iter]
+        table22[ds]["dbscan_clusters"] = int(
+            len(set(fits22[ds, "DBSCAN"].labels_.tolist()) - {-1}))
+    metrics["clusters"] = dict(n=CLUSTER_N, fit_ms=table22,
+                               kernel14_launches=len(rs22.calls))
+    print(f"P22 clustering harness ({len(sets22)} datasets x {CLUSTER_N} "
+          f"points, standardised): card = CPU (k-means labels, centres "
+          f"within 1e-5; GMM within 1e-4 after as many EM steps; spectral "
+          f"and DBSCAN partitions); "
+          f"kernel 14 bit-equal on its {len(rs22.calls)} launches; ms a fit "
+          f"(host clock, warm):")
+    for ds, t in table22.items():
+        print(f"   {ds:14s} " + "  ".join(
+            f"{name} {t[name]:.1f}" for name, _ in shims)
+            + f"  (GMM {t['gmm_iters'][0]} EM steps, the CPU alone "
+            f"{t['gmm_iters'][1]}; vs the CPU at the card's count "
+            f"{t['gmm_err_vs_cpu']:.1e})")
 
     # ---- kernels line, card, result --------------------------------------
     meta = {
@@ -2606,7 +2990,7 @@ def main(argv=None):
     rows["ball_group_vjp"] = rows["scatter_add_rows"]
     vjp_launches = sum(paths.launches[p].get("scatter_add_rows", 0)
                        for p in ("train_cls_msg", "train_cls_ssg", "fit",
-                                 "train_semseg_ssg"))
+                                 "train_semseg_ssg", "miniworld"))
     kern_rows = []
     for name in KERNELS + ("ball_group_vjp",):
         source, replaces = meta[name]

@@ -35,11 +35,13 @@ class NeighborSet(NamedTuple):
 def _smallest(d2: torch.Tensor, k: int):
     """The k smallest entries of each row, ascending, the lowest index
     first among equal values (as `lax.top_k` of the negated row): a
-    stable sort cut to k. `torch.topk` leaves the order of ties open."""
+    stable sort cut to k. `torch.topk` leaves the order of ties open.
+    The k columns are copied out, so a caller that keeps them does not
+    keep the whole sorted row block alive."""
     if k > d2.shape[1]:
         raise ValueError(f"k={k} exceeds the db size {d2.shape[1]}")
     d, i = torch.sort(d2, dim=1, stable=True)
-    return d[:, :k], i[:, :k]
+    return d[:, :k].clone(), i[:, :k].clone()
 
 
 def knn(query: torch.Tensor, db: torch.Tensor, k: int,

@@ -1,13 +1,17 @@
-"""Centroid voxel downsample (port of `pctpu/ops/voxel.py`):
-`voxel_downsample` for one cloud at full capacity, and the batched
-`voxel_downsample_capped` with a uniform-stride cap.
+"""Voxel downsample (port of `pctpu/ops/voxel.py`): `voxel_downsample`
+for one cloud at full capacity (centroid or random member),
+`voxel_downsample_cloud`, the batched `voxel_downsample_capped` with a
+uniform-stride cap and `voxel_downsample_batch` (the capped one at
+cap = N).
 
-`voxel_downsample_capped`: one stable sort on a fused int32 cell key carries the cell-relative
-coordinates and the mask as payload; per-voxel sums are CUMSUM
+`voxel_downsample_capped`: one stable sort on a fused int32 cell key
+carries the cell-relative coordinates and the mask as payload; per-voxel sums are CUMSUM
 DIFFERENCES at run boundaries; when more than `cap` voxels exist a uniform
 stride over the cell-sorted voxel ids picks the kept ones. The output is
 cell-lexsorted (x-major), which the x-band FPFH relies on."""
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -98,17 +102,25 @@ def voxel_downsample_capped(points: torch.Tensor, mask: torch.Tensor,
 
 
 def voxel_downsample(points: torch.Tensor, mask: torch.Tensor, leaf: float,
-                     method: str = "centroid") -> PointCloud:
-    """points [N,3], mask [N] -> PointCloud of voxel centroids (capacity
-    N, valid voxels compacted to the front in (x, y, z) cell order).
+                     method: str = "centroid",
+                     generator: Optional[torch.Generator] = None,
+                     prio: Optional[torch.Tensor] = None) -> PointCloud:
+    """points [N,3], mask [N] -> PointCloud of voxel representatives
+    (capacity N, valid voxels compacted to the front in (x, y, z) cell
+    order).
 
-    The reference's 3-key `lexsort` is three stable sorts here; its
-    `segment_sum` is a cumsum difference over each voxel's contiguous run
-    in f64, rounded once to f32, which is deterministic on the card. Only
-    `method="centroid"` is ported."""
-    if method != "centroid":
-        raise ValueError(f"voxel_downsample: method {method!r} is not "
-                         "ported (only 'centroid')")
+    method "centroid": each voxel's mean. The reference's `segment_sum` is
+    a cumsum difference over the voxel's contiguous run in f64, rounded
+    once to f32, which is deterministic on the card.
+    method "random": a uniform member. `prio` [N] int32 (default: drawn in
+    [0, 2^31 - 1) from `generator`, itself seeded 0 on the points' device
+    when None) is the least significant key of the stable sort, and each
+    run's first row is its pick, as in the reference.
+
+    The reference's lexsort is stable sorts, least significant key first.
+    """
+    if method not in ("centroid", "random"):
+        raise ValueError(f"voxel_downsample: unknown method {method!r}")
     n = points.shape[0]
     dev = points.device
     points = points.float()
@@ -118,6 +130,13 @@ def voxel_downsample(points: torch.Tensor, mask: torch.Tensor, leaf: float,
     cell = torch.where(mask[:, None], cellf, 0.0).long()
     cell = torch.where(mask[:, None], cell, INT_SENTINEL)   # padding last
     order = torch.arange(n, device=dev)
+    if method == "random":
+        if prio is None:
+            if generator is None:
+                generator = torch.Generator(device=dev).manual_seed(0)
+            prio = torch.randint(0, INT_SENTINEL, (n,), generator=generator,
+                                 device=dev, dtype=torch.int32)
+        order = torch.sort(prio.to(dev), stable=True).indices
     for k in (2, 1, 0):                      # lexsort, x the primary key
         _, perm = torch.sort(cell[order, k], stable=True)
         order = order[perm]
@@ -128,23 +147,43 @@ def voxel_downsample(points: torch.Tensor, mask: torch.Tensor, leaf: float,
     new_run = new_run & ms
     seg = torch.cumsum(new_run.long(), dim=0) - 1
     nv = new_run.sum()
-    nxt_start = torch.cat([new_run[1:] | ~ms[1:],
-                           torch.ones(1, dtype=torch.bool, device=dev)])
-    is_end = ms & nxt_start
     idx = torch.arange(n, device=dev)
+    out_mask = idx < nv
 
     def by_voxel(flag):   # row index of each voxel's flagged row
         slot = torch.where(flag, seg, n)     # slot n collects the rest
         return torch.zeros(n + 1, dtype=torch.long, device=dev).scatter_(
             0, slot, idx)[:n]
 
-    s_v, e_v = by_voxel(new_run), by_voxel(is_end)
-    vals = torch.cat([torch.where(ms[:, None], ps, 0.0),
-                      ms[:, None].float()], dim=1).double()
-    csum = torch.cumsum(vals, dim=0)
-    sums = csum[e_v] - torch.where((s_v > 0)[:, None],
-                                   csum[torch.clamp_min(s_v - 1, 0)], 0.0)
-    out_pts = (sums[:, :3] / torch.clamp_min(sums[:, 3:], 1.0)).float()
-    out_mask = idx < nv
+    s_v = by_voxel(new_run)
+    if method == "random":
+        out_pts = ps[s_v]
+    else:
+        nxt_start = torch.cat([new_run[1:] | ~ms[1:],
+                               torch.ones(1, dtype=torch.bool, device=dev)])
+        e_v = by_voxel(ms & nxt_start)
+        vals = torch.cat([torch.where(ms[:, None], ps, 0.0),
+                          ms[:, None].float()], dim=1).double()
+        csum = torch.cumsum(vals, dim=0)
+        sums = csum[e_v] - torch.where((s_v > 0)[:, None],
+                                       csum[torch.clamp_min(s_v - 1, 0)], 0.0)
+        out_pts = (sums[:, :3] / torch.clamp_min(sums[:, 3:], 1.0)).float()
     out_pts = torch.where(out_mask[:, None], out_pts, out_pts[:1])
     return PointCloud(points=out_pts, mask=out_mask)
+
+
+def voxel_downsample_cloud(pc: PointCloud, leaf: float,
+                           method: str = "centroid",
+                           generator: Optional[torch.Generator] = None,
+                           prio: Optional[torch.Tensor] = None) -> PointCloud:
+    return voxel_downsample(pc.points, pc.mask, leaf, method=method,
+                            generator=generator, prio=prio)
+
+
+def voxel_downsample_batch(points: torch.Tensor, mask: torch.Tensor,
+                           leaf: float) -> PointCloud:
+    """Batched centroid voxel downsample at full capacity: [B,N,3] x
+    [B,N] -> PointCloud [B,N] (valid voxels compacted to the front); see
+    `voxel_downsample_capped`."""
+    pc, _ = voxel_downsample_capped(points, mask, leaf, cap=points.shape[1])
+    return pc

@@ -68,7 +68,14 @@ def test_port_imports_no_jax_or_pctpu():
                    "nn/checkpoint.py", "nn/train_cli.py",
                    "parallel/posegraph.py", "pipelines/odometry.py",
                    "pipelines/registration_driver.py",
-                   "register/template_api.py"):
+                   "register/template_api.py", "cluster/__init__.py",
+                   "cluster/plane_ransac.py", "cluster/dbscan.py",
+                   "cluster/kmeans.py", "cluster/gmm.py", "cluster/spectral.py",
+                   "pipelines/segmentation.py", "pipelines/cluster_compare.py",
+                   "pipelines/kitti_frames.py", "pipelines/kitti_eval.py",
+                   "pipelines/analytics.py", "pipelines/trainset.py",
+                   "pipelines/kitti_etl.py", "pipelines/detect.py",
+                   "pipelines/miniworld.py"):
         assert f"pctpu_torch/{module}" in names, module
     bad = [(str(f.relative_to(REPO)), mod) for f in files
            for mod in _imports(f) if mod.split(".")[0] in FORBIDDEN]

@@ -1382,3 +1382,78 @@ def test_window_bf16_card_matches_cpu(gen, cuda):
     assert logits.dtype == torch.float32
     torch.testing.assert_close(logits.cpu(), cpu, rtol=0, atol=1e-2 * max(
         1.0, float(cpu.abs().max())))
+
+
+def _cpu_gumbel_sampler(seed):
+    """The plane's triples as the Gumbel top-3 of noise drawn on the CPU
+    from `seed` at every call, whatever device the vote mask is on: one
+    sampler for the card and the CPU."""
+    from pctpu_torch.cluster.plane_ransac import gumbel_sampler
+
+    def sample(vote_mask, h):
+        draw = gumbel_sampler(torch.Generator().manual_seed(seed))
+        return draw(vote_mask.cpu(), h).to(vote_mask.device)
+    return sample
+
+
+def test_segmentation_card_matches_cpu(gen, cuda):
+    """segment_ground_and_objects on a mini-world frame (7,560 points) with
+    the same plane draws on both devices: ground, object ids and
+    foreground equal."""
+    import tempfile
+    from pctpu_torch.core import io
+    from pctpu_torch.core.cloud import PointCloud
+    from pctpu_torch.pipelines import miniworld
+    from pctpu_torch.pipelines.segmentation import segment_ground_and_objects
+    with tempfile.TemporaryDirectory() as root:
+        fid = miniworld.generate_dataset(root, 1, seed=0)[0]
+        pts = io.read_velodyne_bin(f"{root}/velodyne/{fid}.bin")
+    cfg = miniworld.seg_config()
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        pc = PointCloud.from_numpy(pts, device=dev)
+        out.append(segment_ground_and_objects(
+            pc.points, pc.mask, sampler=_cpu_gumbel_sampler(0), cfg=cfg))
+    for name in ("ground_mask", "object_ids", "foreground"):
+        assert torch.equal(getattr(out[0], name).cpu(),
+                           getattr(out[1], name)), name
+    ids = out[0].object_ids.cpu().numpy()
+    assert len(np.unique(ids[ids >= 0])) >= 4
+
+
+def test_kmeans_card_repeats_and_matches_cpu(gen, cuda):
+    """k-means on 3 blobs (N 3,000): the centre sums through kernel 14,
+    two runs on the card bit for bit, and labels, n_iter equal to the
+    CPU's (the plain version) with centres within 1e-5."""
+    from pctpu_torch.cluster.kmeans import kmeans
+    c = np.array([[0.0, 0.0], [4.0, 1.0], [1.5, 4.5]])
+    x = (c[np.arange(3000) % 3] + gen.normal(scale=0.8, size=(3000, 2))
+         ).astype(np.float32)
+    before = pallas_gather.scatter_add_rows_pallas.launches
+    runs = [kmeans(_t(x, cuda), 3, generator=torch.Generator().manual_seed(1))
+            for _ in range(2)]
+    assert (pallas_gather.scatter_add_rows_pallas.launches - before
+            == 2 * runs[0][2])
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert torch.equal(runs[0][1], runs[1][1])
+    cc, cl, cn = kmeans(torch.from_numpy(x), 3,
+                        generator=torch.Generator().manual_seed(1))
+    assert cn == runs[0][2]
+    assert torch.equal(runs[0][1].cpu(), cl)
+    torch.testing.assert_close(runs[0][0].cpu(), cc, rtol=0, atol=1e-5)
+
+
+def test_random_voxel_card_matches_cpu(gen, cuda):
+    """voxel_downsample(method="random") with the same priorities on both
+    devices: the same picks."""
+    from pctpu_torch.ops.voxel import voxel_downsample
+    pts = gen.uniform(-20, 20, (20000, 3)).astype(np.float32)
+    mask = gen.uniform(size=20000) > 0.1
+    prio = torch.from_numpy(gen.integers(0, 2**31 - 1, 20000).astype(
+        np.int32))
+    k = voxel_downsample(_t(pts, cuda), _t(mask, cuda), 1.5, method="random",
+                         prio=prio.to(cuda))
+    c = voxel_downsample(torch.from_numpy(pts), torch.from_numpy(mask), 1.5,
+                         method="random", prio=prio)
+    assert torch.equal(k.mask.cpu(), c.mask)
+    assert torch.equal(k.points.cpu(), c.points)
