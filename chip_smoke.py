@@ -76,7 +76,21 @@ hand-written kernel against its plain PyTorch version:
   P22 the clustering harness: `K_Means`, `GMM`, `spetral_clustering`
      and `DBSCAN` on numpy versions of `cluster_compare`'s six datasets
      (500 points), on the card and on the CPU: kernel 14 in k-means'
-     centre sums.
+     centre sums;
+  P23 registration's two options on P1's pairs: `register_pairs` with
+     keypoints="iss" (ISS keypoints of each voxel cloud as the matching
+     sites: K1-K4) and with feature_backend="dense" (`fpfh_dense`: K1 and
+     K4, no K2/K3; its features against `fpfh_fused`'s on two pairs), and
+     `register_pair` with keypoints="iss" on one pair (kernel 5, K1);
+  P24 PointRCNN (no kernel): the reference test's recipe (B 4 x 512,
+     npoints (128, 32), Adam 3e-3 for 120 steps, then `extract_proposals`
+     and `RefineNet(cap=32)`), then `ProposalNet` at its defaults on B 16
+     synthetic KITTI-style scenes of 16,384 points x 4 (x, y, z,
+     intensity): serving, training, proposals and refinement per scene;
+  P25 keypoints and descriptors on P1's first cloud and its voxel cloud:
+     ISS, Harris3D (both measures), Harris6D, SIFT3D, SHOT-352 at the ISS
+     keypoints, PCA, timed on the card on the whole cloud and held against
+     the CPU on every other point of it.
 
 P13-P14 build their worlds and scans from fixed seeds as `bench.py` and
 the test do (rng 5 and 0); P15 writes its files under
@@ -102,7 +116,18 @@ Phases:
      loss at every step, every parameter moved, one BN's running
      statistics moved by the schedule's momentum, loss and gradients
      against the plain versions and against the CPU; fit: val acc > 0.9
-     and a resume; the segmenters: logits within 1e-5 of the plain
+     and a resume; P23: every pair within the bound, dense against fused
+     features as `tests/test_features.py:594-618` bounds them (mean |diff|
+     < 0.02, under 0.2% of entries above 0.5, max < 15); P24: the
+     reference test's gates (a valid first proposal with 3D IoU >= 0.25,
+     RefineNet residuals finite of shape (8, 8)), finite outputs and
+     losses at full width, logits and residuals within 1e-4 of the CPU's
+     on 2 scenes, `nms_rotated` equal to the CPU's; P25: ISS and Harris
+     masks equal where no decision hinges on rounding (`decidable`),
+     SIFT3D masks equal but for at most 0.1% of the points, SHOT within
+     1e-5 given the same normals where its frame is decided
+     (`shot_decided`), PCA within 1e-5; the segmenters: logits within
+     1e-5 of the plain
      versions' and 1e-4 of the CPU's on 4 clouds, P18's gradients within
      5e-2 of their norms of the CPU's; workload 6: finite losses, the
      logits of 2 clouds within 1e-2 of the largest (bf16) and 1e-4
@@ -164,6 +189,7 @@ import shutil
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -1384,6 +1410,485 @@ def same_partition(a, b):
 
 
 # ---------------------------------------------------------------------------
+# P23-P25: registration's two options, PointRCNN, keypoints and descriptors
+# ---------------------------------------------------------------------------
+
+def registration_options(paths, mods, src, dst, gts, pm, torch):
+    """P23: `register_pairs` with keypoints="iss" (K1-K4) and with
+    feature_backend="dense" (K1, K4), and `register_pair` with
+    keypoints="iss" (kernel 5, K1), on P1's pairs; every launch of each
+    counted run held against its plain version. `pm`: the port's
+    modules by name. Returns the metrics."""
+    pipeline, voxel, se3 = pm["pipeline"], pm["voxel"], pm["se3"]
+    cfg_iss = pipeline.RegistrationConfig(keypoints="iss")
+    cfg_dense = pipeline.RegistrationConfig(feature_backend="dense")
+    dev = src.points.device
+
+    def pairs_run(cfg, seed=0):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        return pipeline.register_pairs(src, dst, cfg=cfg, generator=gen)
+
+    out, checks = {}, {}
+    for key, cfg, expect in (
+            ("iss", cfg_iss, {"nn1": 1, "spfh": 2, "wsum": 2,
+                              "icp_mega_batch": 2}),
+            ("dense", cfg_dense, {"nn1": 1, "icp_mega_batch": 2})):
+        pairs_run(cfg)                                          # warm-up
+        with recording_k1_k4(mods["pallas_nn"], mods["pallas_fpfh"],
+                             mods["pallas_icp_mega"]) as rec:
+            res = paths.run(f"register_pairs_{key}", lambda: pairs_run(cfg),
+                            expect)
+        rte, rre = gate(f"P23 register_pairs {key}", res.T, gts, se3, torch)
+        checks[key] = check_path_kernels(mods, rec, torch)
+        ms = cuda_ms(lambda: pairs_run(cfg, 1), reps=3, warmup=0)
+        out[f"register_pairs_{key}"] = dict(
+            worst_rte=rte, worst_rre=rre, batch_ms=ms,
+            pairs_per_s=src.points.shape[0] / (ms / 1e3),
+            matches=[int(res.num_matches.min()),
+                     int(res.num_matches.max())])
+
+    # the ISS sites of the 2B voxel clouds, one cloud at a time on the host
+    downs = [voxel.voxel_downsample_capped(
+        pc.points, pc.mask, cfg_iss.voxel_size,
+        cfg_iss.downsample_capacity)[0] for pc in (src, dst)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sites = torch.cat([pipeline.keypoint_sites(d, cfg_iss) for d in downs])
+    torch.cuda.synchronize()
+    iss_ms = (time.perf_counter() - t0) * 1e3
+    out["register_pairs_iss"].update(
+        iss_loop_ms=iss_ms, keypoints=sites.sum(1).tolist(),
+        voxels=torch.cat([d.mask for d in downs]).sum(1).tolist())
+
+    # dense features against fpfh_fused's on two pairs (their 4 voxel
+    # clouds), the same normals
+    pts = torch.cat([downs[0].points[:2], downs[1].points[:2]])
+    msk = torch.cat([downs[0].mask[:2], downs[1].mask[:2]])
+    nrm = pm["fpfh_dense"].normals_radius_dense(
+        pts, msk, radius=cfg_dense.normal_radius)
+    dense = pm["fpfh_dense"].fpfh_dense(pts, mask=msk, normals=nrm,
+                                        radius=cfg_dense.feature_radius)
+    fused = pm["pallas_fpfh"].fpfh_fused(
+        pts, mask=msk, normals=nrm, radius=cfg_dense.feature_radius,
+        x_banded=True, x_slack=cfg_dense.voxel_size)
+    diff = (dense - fused)[msk].abs()
+    out["register_pairs_dense"]["vs_fused"] = dict(
+        mean=float(diff.mean()), above_half=float((diff > 0.5).float().mean()),
+        max=_flip_ok(dense[msk], fused[msk], "P23 dense vs fused"))
+
+    one = (pm["PointCloud"](src.points[0], src.mask[0]),
+           pm["PointCloud"](dst.points[0], dst.mask[0]))
+
+    def pair_run():
+        gen = torch.Generator(device=dev).manual_seed(0)
+        return pipeline.register_pair(*one, cfg=cfg_iss, generator=gen)
+    pair_run()
+    with recording_k1_k4(mods["pallas_nn"], mods["pallas_fpfh"],
+                         mods["pallas_icp_mega"]) as rec:
+        res = paths.run("register_pair_iss", pair_run,
+                        {"icp_mega": 2, "nn1": 1})
+    rte, rre = gate("P23 register_pair iss", res.T, gts[0], se3, torch)
+    checks["pair"] = check_path_kernels(mods, rec, torch)
+    out["register_pair_iss"] = dict(
+        rte=rte, rre=rre, call_ms=cuda_ms(pair_run, reps=3, warmup=0),
+        matches=int(res.num_matches))
+    out["kernels_vs_plain"] = checks
+    r = out["register_pairs_iss"]
+    print(f"P23 register_pairs keypoints=iss ({len(r['keypoints'])} clouds): "
+          f"max RTE {r['worst_rte']:.4f} m, RRE {r['worst_rre']:.4f} deg; "
+          f"{r['batch_ms']:.2f} ms a batch ({r['pairs_per_s']:.1f} pairs/s);"
+          f" matches {r['matches'][0]}..{r['matches'][1]}; ISS keypoints a "
+          f"cloud {min(r['keypoints'])}..{max(r['keypoints'])} of "
+          f"{min(r['voxels'])}..{max(r['voxels'])} voxels; the ISS loop "
+          f"over the {len(r['keypoints'])} clouds {iss_ms:.1f} ms (host "
+          "clock)")
+    r = out["register_pairs_dense"]
+    print(f"    feature_backend=dense: max RTE {r['worst_rte']:.4f} m, RRE "
+          f"{r['worst_rre']:.4f} deg; {r['batch_ms']:.2f} ms a batch "
+          f"({r['pairs_per_s']:.1f} pairs/s); vs fpfh_fused on 2 pairs: "
+          f"mean |diff| {r['vs_fused']['mean']:.2e}, "
+          f"{r['vs_fused']['above_half']:.2e} above 0.5, max "
+          f"{r['vs_fused']['max']:.2f}")
+    r = out["register_pair_iss"]
+    print(f"    register_pair keypoints=iss: RTE {r['rte']:.4f} m, RRE "
+          f"{r['rre']:.4f} deg, {r['call_ms']:.1f} ms, {r['matches']} "
+          "matches")
+    for key, name in (("iss", "P23 iss"), ("dense", "P23 dense"),
+                      ("pair", "P23 pair")):
+        print(kernels_line(name, checks[key]))
+    return out
+
+
+def detector_scenes(rng, batch, n, cars=6):
+    """[batch,n,4] synthetic KITTI-style scenes (x, y, z, intensity) and
+    their car boxes [batch,cars,7]: ground over 70 x 80 m (60% of the
+    points), car-sized boxes (PointRCNN's anchor, jittered) on it, their
+    points on the box surfaces and inside."""
+    scenes, boxes = [], []
+    for _ in range(batch):
+        g = int(0.6 * n)
+        ground = np.stack([rng.uniform(0, 70, g), rng.uniform(-40, 40, g),
+                           rng.normal(scale=0.05, size=g)], 1)
+        per = np.diff(np.linspace(0, n - g, cars + 1).astype(int))
+        objs, bx = [ground], []
+        for k in range(cars):
+            ext = np.array([3.9, 1.6, 1.56]) * rng.uniform(0.9, 1.1, 3)
+            c = np.array([rng.uniform(5, 65), rng.uniform(-35, 35),
+                          ext[2] / 2])
+            yaw = rng.uniform(-np.pi, np.pi)
+            local = rng.uniform(-0.5, 0.5, (per[k], 3)) * ext
+            cs_, sn = np.cos(yaw), np.sin(yaw)
+            objs.append(local @ np.array([[cs_, sn, 0], [-sn, cs_, 0],
+                                          [0, 0, 1]]) + c)
+            bx.append(np.concatenate([c, ext, [yaw]]))
+        xyz = np.concatenate(objs)
+        inten = rng.uniform(size=(n, 1))
+        scenes.append(np.concatenate([xyz, inten], 1))
+        boxes.append(np.stack(bx))
+    return (np.stack(scenes).astype(np.float32),
+            np.stack(boxes).astype(np.float32))
+
+
+def pointrcnn_phase(paths, dev, seed, pm, torch):
+    """P24: the reference test's recipe as the gate (B 4 x 512, npoints
+    (128, 32), Adam 3e-3 for 120 steps: a valid first proposal with 3D IoU
+    >= 0.25, RefineNet residuals finite of shape (8, 8)); then ProposalNet
+    at its defaults on B 16 x 16,384 x 4 synthetic scenes: serving and
+    training timed, proposals and refinement per scene, the card against
+    the CPU. No kernel runs. Returns the metrics."""
+    import copy
+    R, box3d = pm["pointrcnn"], pm["box3d"]
+    sort = pm["pointnet2"].morton_sort_packed
+    out = {}
+
+    # -- the reference test's recipe (tests/test_models.py:315-386)
+    B, N = 4, 512
+    gt = np.array([1.5, -0.8, 0.8, 3.9, 1.6, 1.6, 0.4], np.float32)
+
+    def scene(r):
+        ground = np.stack([r.uniform(-8, 8, 350), r.uniform(-8, 8, 350),
+                           r.normal(scale=0.05, size=350)], 1)
+        c, s = np.cos(gt[6]), np.sin(gt[6])
+        local = r.uniform(-0.5, 0.5, (N - 350, 3)) * gt[3:6]
+        obj = local @ np.array([[c, s, 0], [-s, c, 0], [0, 0, 1]],
+                               np.float32) + gt[:3]
+        return np.concatenate([ground, obj]).astype(np.float32)
+    pc = sort(torch.from_numpy(np.stack([scene(np.random.default_rng(i))
+                                         for i in range(B)])).to(dev))
+    gt_t = torch.from_numpy(gt)[None].to(dev)
+    # the recipe's initialisation is pinned, as the reference test pins
+    # its PRNG key (PRNGKey(0)), apart from --seed: whether 120 steps
+    # reach the box depends on it
+    model = R.ProposalNet(npoints=(128, 32), in_channels=3,
+                          generator=torch.Generator().manual_seed(0)
+                          ).to(dev).train()
+    fg, regt = map(torch.stack, zip(*[R.proposal_targets(pc[b], gt_t)
+                                      for b in range(B)]))
+    need(50 < int(fg.sum()) < B * N, "P24 targets", int(fg.sum()))
+    opt = torch.optim.Adam(model.parameters(), lr=3e-3)
+
+    def recipe():
+        for _ in range(120):
+            opt.zero_grad()
+            s, r = model(pc, 0.1)
+            loss, _ = R.rpn_loss(s, r, fg, regt)
+            loss.backward()
+            opt.step()
+        return loss
+    t0 = time.perf_counter()
+    loss = paths.run("pointrcnn_recipe", recipe, {}).item()
+    recipe_s = time.perf_counter() - t0
+    model.eval()
+    with torch.no_grad():
+        s, r = model(pc)
+        boxes = R.decode_proposals(pc[..., :3], r)
+        prop, ps, valid = R.extract_proposals(boxes[0], s[0], post_nms=8)
+        iou = float(box3d.iou3d(prop[:1], gt_t).max())
+        refine = R.RefineNet(in_features=4, cap=32,
+                             generator=torch.Generator().manual_seed(1)
+                             ).to(dev).eval()
+        res, conf = refine(pc[0], torch.ones((N, 4), device=dev), prop)
+    need(bool(valid[0]) and iou >= 0.25, "P24 recipe proposal", iou, loss)
+    need(res.shape == (8, 8) and conf.shape == (8,)
+         and bool(torch.isfinite(res).all()), "P24 RefineNet")
+    out["recipe"] = dict(loss=loss, best_iou=iou, seconds=recipe_s,
+                         valid=int(valid.sum()))
+
+    # -- full width: ProposalNet's defaults on KITTI-sized scenes
+    FB, FN = 16, 16384
+    pcs, gtb = detector_scenes(np.random.default_rng([seed, 24]), FB, FN)
+    pc = sort(torch.from_numpy(pcs).to(dev))
+    gtb = torch.from_numpy(gtb).to(dev)
+    model = R.ProposalNet(generator=torch.Generator().manual_seed(seed)
+                          ).to(dev)
+    model_cpu = copy.deepcopy(model).cpu().eval()
+    model.eval()
+
+    def serve():
+        with torch.no_grad():
+            return model(pc)
+    serve()
+    torch.cuda.reset_peak_memory_stats()
+    s, r = paths.run("pointrcnn_serve", serve, {})
+    serve_ms = cuda_ms(serve, reps=5, warmup=0)
+    serve_mem = torch.cuda.max_memory_allocated() / 2**30
+    need(s.shape == (FB, FN) and r.shape == (FB, FN, 8)
+         and bool(torch.isfinite(s).all()) and bool(torch.isfinite(r).all()),
+         "P24 serving output")
+    with torch.no_grad():
+        cs, cr = model_cpu(pc[:2].cpu())
+    err_s = float((s[:2].cpu() - cs).abs().max())
+    err_r = float((r[:2].cpu() - cr).abs().max())
+    need(torch.allclose(s[:2].cpu(), cs, rtol=1e-4, atol=1e-4)
+         and torch.allclose(r[:2].cpu(), cr, rtol=1e-4, atol=1e-4),
+         "P24 card vs CPU", err_s, err_r)
+
+    fg, regt = map(torch.stack, zip(*[R.proposal_targets(pc[b, :, :3],
+                                                          gtb[b])
+                                      for b in range(FB)]))
+    model.train()
+    opt = torch.optim.Adam(model.parameters(), lr=3e-3)
+    losses = []
+
+    def step():
+        opt.zero_grad()
+        sc, rg = model(pc, 0.1)
+        loss, _ = R.rpn_loss(sc, rg, fg, regt)
+        loss.backward()
+        opt.step()
+        losses.append(loss.detach())
+    step()
+    torch.cuda.reset_peak_memory_stats()
+    paths.run("pointrcnn_train", step, {})
+    train_ms = cuda_ms(step, reps=TRAIN_STEPS, warmup=0)
+    train_mem = torch.cuda.max_memory_allocated() / 2**30
+    need(all(bool(torch.isfinite(v)) for v in losses), "P24 train loss")
+
+    model.eval()
+    with torch.no_grad():
+        s, r = model(pc)
+        boxes = R.decode_proposals(pc[..., :3], r)
+    refine = R.RefineNet(in_features=1, cap=64,
+                         generator=torch.Generator().manual_seed(seed + 1)
+                         ).to(dev).eval()
+
+    def stage2():
+        props = []
+        with torch.no_grad():
+            for b in range(FB):
+                prop, _, valid = R.extract_proposals(boxes[b], s[b])
+                res, conf = refine(pc[b, :, :3], pc[b, :, 3:], prop)
+                props.append((prop, valid, res, conf))
+        return props
+    stage2()
+    stage2_ms, props = events_ms(
+        lambda: paths.run("pointrcnn_stage2", stage2, {}), torch)
+    need(all(bool(torch.isfinite(p[2]).all()) for p in props),
+         "P24 RefineNet residuals")
+    # the rotated NMS of scene 0's top-256 candidates: card = CPU
+    top = torch.sort(s[0], descending=True, stable=True).indices[:256]
+    k_idx, k_val = box3d.nms_rotated(boxes[0][top], s[0][top], 0.7, 32)
+    c_idx, c_val = box3d.nms_rotated(boxes[0][top].cpu(), s[0][top].cpu(),
+                                     0.7, 32)
+    need(torch.equal(k_idx.cpu(), c_idx) and torch.equal(k_val.cpu(), c_val),
+         "P24 nms_rotated card vs CPU")
+    nms_ms = cuda_ms(lambda: box3d.nms_rotated(boxes[0][top], s[0][top],
+                                               0.7, 32), reps=3)
+    out["full"] = dict(
+        batch=FB, points=FN, npoints=list(model.npoints),
+        serve_ms=serve_ms, scenes_per_s=FB / (serve_ms / 1e3),
+        serve_peak_gib=serve_mem, train_ms=train_ms,
+        train_scenes_per_s=FB / (train_ms / 1e3), train_peak_gib=train_mem,
+        losses=[float(v) for v in losses], stage2_ms=stage2_ms,
+        nms_ms=nms_ms, proposals=sum(int(p[1].sum()) for p in props),
+        card_vs_cpu=dict(score=err_s, reg=err_r))
+    f = out["full"]
+    print(f"P24 PointRCNN: the reference test's recipe (B {B} x {N}, 120 "
+          f"Adam steps, {recipe_s:.1f} s): loss {loss:.4f}, first "
+          f"proposal 3D IoU {iou:.3f} (gate 0.25), RefineNet (8, 8) finite")
+    print(f"    ProposalNet npoints {f['npoints']} at B {FB} x {FN} x 4: "
+          f"serving {serve_ms:.2f} ms a batch ({f['scenes_per_s']:.1f} "
+          f"scenes/s, peak {serve_mem:.2f} GiB), training {train_ms:.2f} ms "
+          f"a step (peak {train_mem:.2f} GiB); proposals + RefineNet of the "
+          f"{FB} scenes {stage2_ms:.1f} ms ({f['proposals']} proposals), "
+          f"one nms_rotated of 256 {nms_ms:.2f} ms; card vs CPU on 2 "
+          f"scenes: logits {err_s:.1e}, residuals {err_r:.1e}; NMS equal")
+    return out
+
+
+def keypoints_phase(paths, cloud, voxel_cloud, pm, torch):
+    """P25: ISS (PCL defaults, on the cloud and on its voxel cloud),
+    Harris3D (both measures), Harris6D (a synthetic intensity), SIFT3D
+    (field y), SHOT-352 at the ISS keypoints and PCA. Each is timed on the
+    card on the whole cloud, and held against the CPU on every other
+    point of it (8,192 of 16,384: the CPU's stable sorts over
+    [1,024, N] row blocks cost N^2) and on the whole voxel cloud, by
+    `pctpu_torch.features.margins`, which bounds each result from the
+    CPU's values and the geometry alone:
+    - ISS: every valid point's eigenvalues within their `iss_bounds`;
+      masks equal where `iss_decided`.
+    - Harris3D and Harris6D, at the reference's threshold for a LiDAR
+      scan (tests/test_features.py:353: 1e-4 on the noble measure, and
+      1e-4 - k for the harris measure, det - k tr^2, whose trace is 1 on
+      unit normals): responses within 1e-6 where their neighbourhoods are
+      sure (Harris6D: and no gradient solve within the radius has a
+      tangent conditioning of 1e3 or more); masks equal where
+      `threshold_decided` with a 1e-5 margin. Harris6D is held on both
+      halves of the cloud: its keypoints gather by the scan's ill-
+      conditioned solves, where they are not settled.
+    - ISS and Harris: the decided share of the valid points above 0.5,
+      and at least 5 decided keypoints; Harris: the sure share above 0.5.
+    - SIFT3D masks equal but for at most 0.1% of the points (its strict
+      extremum over 25 neighbours at 9 levels can meet a rounding tie).
+    - SHOT (radius 1 and 3, the same normals): within `shot_bounds` (1e-5
+      plus the bin-edge moves) at the settled keypoints, which are more
+      than half of those with 5 neighbours or more, and at least 5.
+    - PCA eigenvalues within 1e-5 relative, eigenvectors within 1e-5 up
+      to sign.
+    Returns the metrics."""
+    F, normals, M = pm["features"], pm["normals"], pm["margins"]
+    (vp, vm) = voxel_cloud
+    cpu = torch.device("cpu")
+    inten = torch.from_numpy(np.random.default_rng(25).uniform(
+        size=cloud.shape[0]).astype(np.float32)).to(cloud.device)
+    # (points, kNN normals, normals facing the centroid, intensity) of the
+    # whole cloud and of the half held against the CPU
+    clouds = {}
+    for part, sel in (("whole", slice(None)), ("half", slice(None, None, 2)),
+                      ("other", slice(1, None, 2))):
+        q = cloud[sel]
+        clouds[part] = (q, normals.estimate_normals(q, k=16),
+                        normals.estimate_normals(q, k=16,
+                                                 viewpoint=q.mean(0)),
+                        inten[sel])
+    out = {}
+
+    def both(name, fn, whole, half):
+        """fn(*whole) on the card, timed by CUDA events after a warm-up;
+        fn(*half) on the card and on the CPU (host clock)."""
+        fn(*whole)
+        ms, _ = events_ms(lambda: paths.run(f"p25_{name}",
+                                            lambda: fn(*whole), {}), torch)
+        card = fn(*half)
+        t0 = time.perf_counter()
+        host = fn(*[a.to(cpu) if hasattr(a, "to") else a for a in half])
+        out[name] = dict(card_ms=ms, cpu_ms=(time.perf_counter() - t0) * 1e3)
+        return card, host
+
+    def masks(name, card, host, decided, valid):
+        """Masks equal where decided; the floors."""
+        dec = decided.cpu()
+        same = card.keypoint_mask.cpu()[dec] == host.keypoint_mask[dec]
+        share = float(dec[valid.cpu()].float().mean())
+        kept = int(host.keypoint_mask[dec].sum())
+        need(bool(same.all()), f"P25 {name} masks where decided",
+             int((~same).sum()))
+        need(share > 0.5 and kept >= 5, f"P25 {name} decided share, "
+             "decided keypoints", share, kept)
+        out[name].update(keypoints=int(host.keypoint_mask.sum()),
+                         keypoints_card=int(card.keypoint_mask.sum()),
+                         masks_differ=int((card.keypoint_mask.cpu()
+                                           != host.keypoint_mask).sum()),
+                         decided=share, keypoints_decided=kept)
+
+    p, nrm, nrm_c, its = clouds["half"]
+    w_p, w_nrm, w_nrm_c, w_its = clouds["whole"]
+    ones = torch.ones(p.shape[0], dtype=torch.bool, device=p.device)
+    iss_host = None
+    for name, whole, half in (("iss_voxel", (vp, vm), (vp, vm)),
+                              ("iss", (w_p, None), (p, None))):
+        card, host = both(name, F.iss_keypoints, whole, half)
+        pts, msk = half
+        valid = ones if msk is None else msk
+        ev = host.eigvals.to(pts.device)
+        decided, bound = M.iss_decided(pts, ev, msk)
+        ratio = ((card.eigvals - ev).abs().amax(1) / bound)[valid]
+        need(bool((ratio <= 1).all()), f"P25 {name} eigenvalues within "
+             "their bounds", float(ratio.max()))
+        out[name]["eigvals_err_over_bound"] = float(ratio.max())
+        masks(name, card, host, decided, valid)
+        iss_host = host
+    nb_unsure = M.neighbourhoods(p, 0.5, 64)[1]
+    o_p, o_nrm, _, o_its = clouds["other"]
+    for name, thr in (("harris3d_noble", 1e-4), ("harris3d_harris", -0.0399),
+                      ("harris6d", 1e-4)):
+        if name == "harris6d":
+            def fn(q, n, i):
+                return F.harris6d_keypoints(q, i, normals=n, threshold=1e-4)
+            card, host = both(name, fn, (w_p, w_nrm, w_its), (p, nrm, its))
+            # its keypoints gather by the scan's ill-conditioned gradient
+            # solves (single-ring neighbourhoods), where they are not
+            # settled: the other half of the cloud too
+            runs = [(p, card, host, M.harris6d_unsure(p, nrm, 0.5)),
+                    (o_p, fn(o_p, o_nrm, o_its),
+                     fn(o_p.cpu(), o_nrm.cpu(), o_its.cpu()),
+                     M.harris6d_unsure(o_p, o_nrm, 0.5))]
+        else:
+            def fn(q, n, measure=name.split("_")[1], thr=thr):
+                return F.harris3d_keypoints(q, normals=n, measure=measure,
+                                            threshold=thr)
+            card, host = both(name, fn, (w_p, w_nrm), (p, nrm))
+            runs = [(p, card, host, nb_unsure)]
+        unsure = torch.cat([u for *_, u in runs]).cpu()
+        err = torch.cat([(c.response.cpu() - h.response).abs()
+                         for _, c, h, _ in runs])[~unsure]
+        sure = float((~unsure).float().mean())
+        need(bool((err <= 1e-6).all()) and sure > 0.5, f"P25 {name} "
+             "responses within 1e-6 where sure, sure share",
+             float(err.max()), sure)
+        out[name].update(response_err_sure=float(err.max()), sure=sure,
+                         points_compared=int(unsure.shape[0]))
+        decided = torch.cat([M.threshold_decided(
+            q, h.response.to(q.device), thr, 0.5, unsure=u).cpu()
+            for q, _, h, u in runs])
+        masks(name, *(types.SimpleNamespace(keypoint_mask=torch.cat(
+            [r[i].keypoint_mask.cpu() for r in runs])) for i in (1, 2)),
+            decided, torch.ones_like(decided))
+    card, host = both("sift3d", F.sift3d_keypoints, (w_p,), (p,))
+    differ = int((card.keypoint_mask.cpu() != host.keypoint_mask).sum())
+    need(differ <= 1e-3 * p.shape[0], "P25 sift3d masks", differ)
+    out["sift3d"].update(keypoints=int(host.keypoint_mask.sum()),
+                         masks_differ=differ)
+    kp = p[iss_host.keypoint_mask.to(p.device)]
+    w_kp = w_p[F.iss_keypoints(w_p).keypoint_mask]
+    for radius in (1.0, 3.0):
+        name = f"shot352_r{radius:g}"
+
+        def fn(q, k, n, radius=radius):
+            return F.shot352(q, k, normals=n, radius=radius)
+        card, host = both(name, fn, (w_p, w_kp, w_nrm_c), (p, kp, nrm_c))
+        settled, bound = M.shot_bounds(p, kp, nrm_c, radius)
+        err = (card - host.to(p.device)).abs().amax(dim=1)
+        populated = pm["knn"].radius_search(kp, p, radius, 128).count >= 5
+        share = float(settled[populated].float().mean())
+        need(bool((err[settled] <= bound[settled]).all()), f"P25 {name} "
+             "within its bound where settled",
+             float((err / bound)[settled].max()))
+        need(share > 0.5 and int(settled.sum()) >= 5, f"P25 {name} "
+             "settled share of the keypoints with 5 neighbours or more, "
+             "settled keypoints", share, int(settled.sum()))
+        out[name].update(keypoints=int(kp.shape[0]),
+                         populated=int(populated.sum()),
+                         settled=int(settled.sum()), settled_share=share,
+                         max_abs_err_settled=float(err[settled].max()),
+                         max_abs_err=float(err.max()))
+    (cv, cV), (hv, hV) = both("pca", normals.pca, (w_p,), (p,))
+    sign = torch.sign((cV.cpu() * hV).sum(0))
+    need(torch.allclose(cv.cpu(), hv, rtol=1e-5, atol=0)
+         and bool(((cV.cpu() * sign - hV).abs() <= 1e-5).all()), "P25 pca")
+    print(f"P25 keypoints and descriptors: ms on the card by CUDA events on "
+          f"one {w_p.shape[0]}-point cloud (ISS also on its "
+          f"{int(vm.sum())}-point voxel cloud) / on the CPU on every other "
+          f"point ({p.shape[0]}), card against CPU there:")
+    for name, r in out.items():
+        extra = {k: v for k, v in r.items() if k not in ("card_ms", "cpu_ms")}
+        print(f"    {name:16s} {r['card_ms']:8.2f} / {r['cpu_ms']:9.1f}  "
+              + ", ".join(f"{k} {v:.3g}" if isinstance(v, float)
+                          else f"{k} {v}" for k, v in extra.items()))
+    return out
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -1407,14 +1912,17 @@ def main(argv=None):
         from pctpu_torch.core import io, se3
         from pctpu_torch.core.cloud import PointCloud, round_up
         from pctpu_torch import entry as pentry
-        from pctpu_torch.features import fpfh_dense, pallas_fpfh
+        from pctpu_torch import features
+        from pctpu_torch.features import fpfh_dense, margins, pallas_fpfh
+        from pctpu_torch.models import pointrcnn
         from pctpu_torch.models import pointnet2
         from pctpu_torch.nn import augment
         from pctpu_torch.nn import checkpoint as ckpt
         from pctpu_torch.nn import config as nncfg
         from pctpu_torch.nn import fit
         from pctpu_torch.nn import train as T
-        from pctpu_torch.ops import (ball_query, gather, pallas_ballgroup,
+        from pctpu_torch.ops import (ball_query, box3d, gather, knn, normals,
+                                     pallas_ballgroup,
                                      pallas_banded, pallas_fps,
                                      pallas_gather, pallas_icp_mega,
                                      pallas_nn, voxel)
@@ -1454,6 +1962,11 @@ def main(argv=None):
 
     # ---- 1. environment --------------------------------------------------
     t_all = time.perf_counter()
+    marks = []
+
+    def mark(name):
+        """Starts the wall clock of the next phase (None: the end)."""
+        marks.append((name, time.perf_counter()))
     card = gpu_line()
     dev = pdevice.resolve_device()
     print(f"torch {torch.__version__}  cuda {torch.version.cuda}  "
@@ -1467,6 +1980,7 @@ def main(argv=None):
     report["build_s"] = build_s
 
     # ---- data --------------------------------------------------------------
+    mark("data")
     rng = np.random.default_rng(args.seed)
     full = (io.read_velodyne_bin(args.scan) if args.scan
             else lidar_scan(np.random.default_rng([args.seed, 9])))
@@ -1480,6 +1994,7 @@ def main(argv=None):
         return [torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in xs]
 
     # ---- P1 register_pairs (K1-K4) ---------------------------------------
+    mark("P1 register_pairs (K1-K4)")
     def run(seed=0):
         gen = torch.Generator(device=dev).manual_seed(seed)
         return pipeline.register_pairs(src, dst, cfg=cfg, generator=gen)
@@ -1540,6 +2055,7 @@ def main(argv=None):
                                   **time_mega(mega, r_k4.calls))
 
     # ---- P2 workload 1: one 16,384-point pair, kernel 5 ------------------
+    mark("P2 workload 1")
     rng1 = np.random.default_rng([args.seed, 1])
     w1_src = full[rng1.choice(full.shape[0], N_POINTS, replace=False)]
     w1_dst, w1_gt = perturb(w1_src, rng1, [0.01, 0.02, 0.05],
@@ -1569,6 +2085,7 @@ def main(argv=None):
     need(metrics["workload1"]["loop_err_vs_plain"] <= 1e-4, "workload1 T")
 
     # ---- P3 workload 4: the full scene, kernel 5 then the exact polish ---
+    mark("P3 workload 4")
     rng4 = np.random.default_rng([args.seed, 4, 1])
     w4_dst, w4_gt = perturb(full, rng4, [0.01, 0.02, 0.05], [0.5, -0.3, 0.1])
     s4, d4 = on_dev(full, w4_dst)
@@ -1616,6 +2133,7 @@ def main(argv=None):
           f"({metrics['workload4']['plain_call_s']:.1f} s)")
 
     # ---- P4 workload 2: 16 pairs x 4,096 points, K4 ----------------------
+    mark("P4 workload 2")
     rng2 = np.random.default_rng([args.seed, 2])
     w2 = []
     for _ in range(W2_BATCH):
@@ -1645,6 +2163,7 @@ def main(argv=None):
     need(metrics["workload2"]["loop_err_vs_plain"] <= 1e-4, "workload2 T")
 
     # ---- P5 the banded ICP loops on workload 1's pair (K6, K7, K8) ---------
+    mark("P5 the banded ICP loops on workload 1's pair (K6, K7, K8)")
     loops = {"nearest_banded": icp.icp_fixed_iters_banded,
                "icp_moments_banded": icp.icp_fixed_iters_banded_fused,
                "icp_moments_banded_v2": icp.icp_fixed_iters_banded_fused_v2}
@@ -1682,6 +2201,7 @@ def main(argv=None):
               f"{ms:.2f} ms per 30 iterations; T vs plain {err:.1e}")
 
     # ---- P6 register_pair: one 35 degree pair of P1 ----------------------
+    mark("P6 register_pair")
     one = (PointCloud(src.points[0], mask[0]), PointCloud(dst.points[0],
                                                           mask[0]))
 
@@ -1710,6 +2230,7 @@ def main(argv=None):
           f"{metrics['register_pair']['loop_err_vs_plain']:.1e}")
 
     # ---- P7, P8 classification serving: kernels 11, 12 -------------------
+    mark("P7, P8 classification serving")
     clouds, labels = modelnet_like(np.random.default_rng([args.seed, 7]),
                                    CLS_REQUESTS * CLS_BATCH, CLS_POINTS)
     dataset = list(zip(clouds, labels))
@@ -1766,6 +2287,7 @@ def main(argv=None):
         del model, cpu_model, ev
 
     # ---- P9 entry(): the flagship forward, then kernel 10 ----------------
+    mark("P9 entry()")
     fwd, (pc_e,) = pentry.entry()
     with Recorder(pallas_fps, "_launch_fps") as rf9, \
             Recorder(pallas_ballgroup, "_launch_ball_group") as rg9:
@@ -1788,6 +2310,7 @@ def main(argv=None):
           f"fps_pallas on its 4 clouds = the batched rows")
 
     # ---- kernels 10-12 against their plain versions -----------------------
+    mark("kernels 10-12 against their plain versions")
     check_fps(pallas_fps, r_fps["cls_msg"] + r_fps["cls_ssg"] + rf9.calls
               + rf10.calls, torch)
     bg_err, bg_boundary, bg_work = check_ball_group(
@@ -1832,6 +2355,7 @@ def main(argv=None):
           f"{rows['ball_group']['ms']:.4f} ms (CUDA events)")
 
     # ---- kernel 5, K6-K8 against their plain versions --------------------
+    mark("kernel 5, K6-K8 against their plain versions")
     w4_cut = [a[:6] + (2,) + a[7:] for a in r_k5w4.calls]   # iters cut to 2
     errs = check_mega(mega, r_k5.calls + w4_cut + r_k5p6.calls, torch)
     # K1 at the shapes of P3 (16,384 queries against the whole scan: the
@@ -1855,6 +2379,7 @@ def main(argv=None):
     print("kernel vs plain: all within tolerance")
 
     # ---- P10, P11 classification training: kernels 11, 12, 14 ------------
+    mark("P10, P11 classification training")
     pc_tr, lab_tr = on_dev(clouds[:CLS_BATCH], labels[:CLS_BATCH])
 
     def train_path(label, name, preset, pc_tr, lab_tr, expect, keep_shape,
@@ -2002,6 +2527,7 @@ def main(argv=None):
         torch.cuda.empty_cache()
 
     # ---- P12 fit on the toy task, checkpoint and resume --------------------
+    mark("P12 fit on the toy task, checkpoint and resume")
     toy = nncfg.TrainConfig(model="cls-ssg", num_classes=2, num_points=128,
                             batch_size=8, epochs=3, lr=1e-3, decay_step=1e9,
                             seed=args.seed)
@@ -2054,6 +2580,7 @@ def main(argv=None):
         torch)
 
     # ---- kernels 13, 14: group_points_pallas on P10's unfused SA2 inputs --
+    mark("kernels 13, 14")
     feats = [(p_, i_) for p_, i_ in r_gp["train_cls_msg"]
              if p_.shape[-1] == 320]
     need([tuple(i_.shape) for _, i_ in feats] == [
@@ -2131,6 +2658,7 @@ def main(argv=None):
         for a in r13.calls]
 
     # ---- P16, P17 segmentation serving: kernels 11, 12 --------------------
+    mark("P16, P17 segmentation serving")
     rooms, room_labels = indoor_rooms(np.random.default_rng([args.seed, 16]),
                                       SEM_REQUESTS * SEM_BATCH, SEM_POINTS)
     room_set = list(zip(rooms, room_labels))
@@ -2189,6 +2717,7 @@ def main(argv=None):
         torch.cuda.empty_cache()
 
     # ---- P18 semseg-ssg training: kernels 11, 12, 14 ----------------------
+    mark("P18 semseg-ssg training")
     rec18 = {}
     r_sc["train_semseg_ssg"], _ = train_path(
         "P18", "train_semseg_ssg", nncfg.S3DIS_SEMSEG_SSG, pc_s, lab_s,
@@ -2238,6 +2767,7 @@ def main(argv=None):
           f"{sem_rows['ball_group']['bound_ms']:.4f})")
 
     # ---- P19 bench.py workload 6: window grouping and bf16, no kernel ----
+    mark("P19 bench.py workload 6")
     w6_rooms = pointnet2.morton_sort_packed(torch.cat(
         [pc_s[:W6_SEM_BATCH], lab_s[:W6_SEM_BATCH, :, None].float()], -1))
     for name, model_name, pc_w, lab_w, classes, tol in (
@@ -2301,6 +2831,7 @@ def main(argv=None):
         torch.cuda.empty_cache()
 
     # ---- P13 the SLAM loop: bench.py workload 5 (K1, then K2-K4) ----------
+    mark("P13 the SLAM loop")
     rng13 = np.random.default_rng(5)                    # bench.py:301
     world13 = slam_world(rng13)
     gt13 = circle_poses(ODO_FRAMES, 6.0)
@@ -2380,6 +2911,7 @@ def main(argv=None):
         metrics["fpfh_launches"]["P13 round 0"] = k13["fpfh"]
 
     # ---- P14 the >100-keyframe graph: sparse PCG on the card ----------------
+    mark("P14 the >100-keyframe graph")
     rng14 = np.random.default_rng(0)                    # the test's rng
     world14 = slam_world(rng14, 1500, 125)
     gt14 = figure_eight_poses(128)
@@ -2453,6 +2985,7 @@ def main(argv=None):
         metrics["fpfh_launches"]["P14 round 0"] = k14["fpfh"]
 
     # ---- P15 the registration-dataset driver on P1's pairs -----------------
+    mark("P15 the registration-dataset driver on P1's pairs")
     reg_dir = ROOT / "build" / "chip_smoke_reg"
     shutil.rmtree(reg_dir, ignore_errors=True)
     (reg_dir / "point_clouds").mkdir(parents=True)
@@ -2504,6 +3037,7 @@ def main(argv=None):
             + [k[name]["max_abs_err"] for k in (k13, k14, k15) if name in k])
 
     # ---- K1 per launch at every path's shapes ------------------------------
+    mark("K1 per launch at every path's shapes")
     print("K1 per launch at the paths' shapes (device time, CUDA graph):")
     metrics["nn1_launches"] = nn1_table(pallas_nn, {
         "P1 register_pairs": r_nn.calls[:1],
@@ -2523,6 +3057,7 @@ def main(argv=None):
           + ", ".join(f"{k} x{r['count']}" for k, r in prof13.items()) + ")")
 
     # ---- K4 / kernel 5: every recorded launch of every path ----------------
+    mark("K4 / kernel 5")
     print("K4 / kernel 5, each recorded launch timed alone:")
     metrics["icp_mega_launches"] = mega_launch_table(mega, {
         "P1 register_pairs": r_k4.calls, "P2 workload 1": r_k5.calls,
@@ -2539,6 +3074,7 @@ def main(argv=None):
     metrics["icp_mega_fixed_ms_per_iter"] = fixed
 
     # ---- kernel 9: normals_radius_fused on P13's frames and P1's clouds -----
+    mark("kernel 9")
     vox = [voxel.voxel_downsample_capped(pc.points, pc.mask, cfg.voxel_size,
                                          cfg.downsample_capacity)[0]
            for pc in (src, dst)]
@@ -2657,6 +3193,7 @@ def main(argv=None):
         library_ms=None, per_case=k9)
 
     # ---- P20 segmentation of the full scan (no kernel) --------------------
+    mark("P20 segmentation of the full scan (no kernel)")
     seg_cfg = segmentation.SegmentationConfig()
     pc20 = PointCloud.from_numpy(full, device=dev)
 
@@ -2734,6 +3271,7 @@ def main(argv=None):
     torch.cuda.empty_cache()
 
     # ---- P21 the mini-world task loop: kernels 11, 12, 14 -----------------
+    mark("P21 the mini-world task loop")
     mw_dir = ROOT / "build" / "chip_smoke_mini"
     shutil.rmtree(mw_dir, ignore_errors=True)
     raw = mw_dir / "kitti"
@@ -2882,6 +3420,7 @@ def main(argv=None):
     torch.cuda.empty_cache()
 
     # ---- P22 the clustering harness: kernel 14 in k-means -----------------
+    mark("P22 the clustering harness")
     sets22 = cluster_datasets(np.random.default_rng([args.seed, 22]))
     shims = (("KMeans", lambda k, d: cluster.K_Means(k, device=d)),
              ("GMM", lambda k, d: cluster.GMM(k, device=d)),
@@ -2947,7 +3486,41 @@ def main(argv=None):
             f"{t['gmm_iters'][1]}; vs the CPU at the card's count "
             f"{t['gmm_err_vs_cpu']:.1e})")
 
+    # ---- P23 registration's two options: ISS keypoints, dense FPFH --------
+    mark("P23 registration's two options")
+    pm = dict(pipeline=pipeline, voxel=voxel, se3=se3, PointCloud=PointCloud,
+              fpfh_dense=fpfh_dense, pallas_fpfh=pallas_fpfh,
+              pointrcnn=pointrcnn, box3d=box3d, pointnet2=pointnet2,
+              features=features, normals=normals, knn=knn, margins=margins)
+    metrics["registration_options"] = reg23 = registration_options(
+        paths, mods, src, dst, gts, pm, torch)
+    k23 = reg23["kernels_vs_plain"]
+    for name in ("nn1", "spfh", "wsum", "icp_mega_batch"):
+        rows[name]["max_abs_err"] = max(
+            [rows[name]["max_abs_err"]]
+            + [k[name]["max_abs_err"] for k in (k23["iss"], k23["dense"])
+               if name in k])
+    rows["nn1"]["max_abs_err"] = max(rows["nn1"]["max_abs_err"],
+                                     k23["pair"]["nn1"]["max_abs_err"])
+    rows["icp_mega"]["max_abs_err"] = max(
+        rows["icp_mega"]["max_abs_err"],
+        k23["pair"]["icp_mega_batch"]["max_abs_err"])
+    torch.cuda.empty_cache()
+
+    # ---- P24 PointRCNN: the reference test's recipe, then full width -------
+    mark("P24 PointRCNN")
+    metrics["pointrcnn"] = pointrcnn_phase(paths, dev, args.seed, pm, torch)
+    torch.cuda.empty_cache()
+
+    # ---- P25 keypoints and descriptors on P1's first cloud -----------------
+    mark("P25 keypoints and descriptors on P1's first cloud")
+    vdown, _ = voxel.voxel_downsample_capped(
+        src.points[:1], mask[:1], cfg.voxel_size, cfg.downsample_capacity)
+    metrics["keypoints"] = keypoints_phase(
+        paths, src.points[0], (vdown.points[0], vdown.mask[0]), pm, torch)
+
     # ---- kernels line, card, result --------------------------------------
+    mark(None)
     meta = {
         "nn1": ("pctpu_torch/csrc/nn1.cu",
                 "pctpu/ops/pallas_nn.py:27 _nn_kernel"),
@@ -3018,6 +3591,11 @@ def main(argv=None):
                        "12's backward; moments: its 2 launches in the "
                        "kernel-9 phase, as device time); launches: summed "
                        "over the paths")
+    phases = {name: round(t1 - t0, 1)
+              for (name, t0), (_, t1) in zip(marks, marks[1:])}
+    report["phase_s"] = phases
+    print("phases, wall s (host clock): " + "; ".join(
+        f"{name} {s:.1f}" for name, s in phases.items()))
     print(f"total {report['seconds']:.1f} s")
     (ROOT / "build").mkdir(exist_ok=True)
     (ROOT / "build" / "chip_smoke.json").write_text(

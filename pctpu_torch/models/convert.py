@@ -11,6 +11,14 @@ to numpy arrays under `/`-joined names, collection first, e.g.
 `CheckpointWindowScale` -> `scales` (flax's name for `nn.remat` of
 `WindowScale`), `FoldedDenseBNRelu` -> `folded`); a `kernel [in, out]`
 (of a Dense or a folded layer) becomes a `weight [out, in]`.
+
+The same names cover the PointRCNN modules (`models/pointrcnn.py`):
+`ProposalNet`'s window SA levels, feature propagation and its two Dense
+heads, `RefineNet`'s shared MLP and heads. flax numbers the modules of a
+compact body in creation order, and the reference creates `ProposalNet`'s
+feature-propagation modules from the coarsest level down, so
+`FeaturePropagation_0` is the one at level 2; the port's `fp` list keeps
+that order.
 """
 from __future__ import annotations
 

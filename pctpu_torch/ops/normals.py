@@ -1,7 +1,8 @@
-"""Per-point normals from kNN neighbourhoods (port of
-`pctpu/ops/normals.py:neighborhood_covariances`, `estimate_normals`): the
-least eigenvector of each neighbourhood's covariance, from the closed-form
-3x3 solver (`ops.eigh3`)."""
+"""Global PCA and per-point normals from kNN neighbourhoods (port of
+`pctpu/ops/normals.py`): `pca` / `pca_project` of a whole cloud, and
+`neighborhood_covariances` / `estimate_normals`, the least eigenvector of
+each neighbourhood's covariance. Every 3x3 eigenproblem goes through the
+closed-form solver (`ops.eigh3`)."""
 from __future__ import annotations
 
 from typing import Optional
@@ -11,6 +12,43 @@ import torch
 from pctpu_torch.ops.eigh3 import eigh3
 from pctpu_torch.ops.gather import group_points
 from pctpu_torch.ops.knn import knn
+
+
+def pca(data: torch.Tensor, mask: Optional[torch.Tensor] = None,
+        correlation: bool = False):
+    """Global PCA of [N,D] data -> (eigenvalues [D], eigenvectors [D,D] as
+    columns), both in descending order of eigenvalue: the covariance (or,
+    with `correlation`, the correlation) of the masked, centred rows.
+    Three columns take `eigh3`, others `torch.linalg.eigh`."""
+    if mask is None:
+        mask = torch.ones(data.shape[:1], dtype=torch.bool,
+                          device=data.device)
+    w = mask.float()
+    n = torch.clamp_min(w.sum(), 1.0)
+    mean = torch.sum(data * w[:, None], dim=0) / n
+    centered = (data - mean) * w[:, None]
+    cov = centered.T @ centered / n
+    if correlation:
+        d = torch.sqrt(torch.clamp_min(torch.diagonal(cov), 1e-12))
+        cov = cov / d[:, None] / d[None, :]
+    if data.shape[1] == 3:
+        vals, vecs = eigh3(cov)
+    else:
+        vals, vecs = torch.linalg.eigh(cov)
+    return vals.flip(-1), vecs.flip(-1)
+
+
+def pca_project(data: torch.Tensor, n_components: int = 2,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """[N,D] data centred on the masked mean and projected onto its top
+    `n_components` principal axes -> [N,n_components]."""
+    if mask is None:
+        mask = torch.ones(data.shape[:1], dtype=torch.bool,
+                          device=data.device)
+    w = mask.float()
+    mean = torch.sum(data * w[:, None], dim=0) / torch.clamp_min(w.sum(), 1.0)
+    _, vecs = pca(data, mask)
+    return (data - mean) @ vecs[:, :n_components]
 
 
 def neighborhood_covariances(points: torch.Tensor, idx: torch.Tensor,

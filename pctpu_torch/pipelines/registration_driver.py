@@ -9,7 +9,8 @@ that raises is isolated: its batchmates are solved one by one, and a
 failed pair is written as the identity and counted in `n_failed`.
 
     python -m pctpu_torch.pipelines.registration_driver --dataset DIR \\
-        --pairs PAIRS --output OUT [--gt GT] [--device cpu]
+        --pairs PAIRS --output OUT [--gt GT] [--keypoints {all,iss}] \\
+        [--device cpu]
 """
 from __future__ import annotations
 
@@ -131,6 +132,8 @@ def main(argv=None):
     p.add_argument("--normal-radius", type=float, default=4.0)
     p.add_argument("--ransac-dist", type=float, default=4.0)
     p.add_argument("--downsample-capacity", type=int, default=2048)
+    p.add_argument("--keypoints", choices=["all", "iss"], default="all",
+                   help="matching sites: all voxel points or ISS keypoints")
     p.add_argument("--device", default=None,
                    help="cuda (the default) or cpu")
     args = p.parse_args(argv)
@@ -139,7 +142,8 @@ def main(argv=None):
                              feature_radius=args.feature_radius,
                              normal_radius=args.normal_radius,
                              ransac_dist=args.ransac_dist,
-                             downsample_capacity=args.downsample_capacity)
+                             downsample_capacity=args.downsample_capacity,
+                             keypoints=args.keypoints)
     res = run_registration_dataset(args.dataset, args.pairs, args.output,
                                    cfg=cfg, limit=args.limit,
                                    batch_size=args.batch_size,

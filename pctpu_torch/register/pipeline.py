@@ -13,6 +13,10 @@
   (neighbour lists) -> mutual-NN matching -> RANSAC -> whole-loop ICP
   (kernel 5: windowed, then exact) -> stats (K1).
 
+`keypoints="iss"` restricts matching and RANSAC to the ISS keypoints of
+each voxel cloud (`features/iss.py`; FPFH still sees the whole voxel
+cloud), in both. `feature_backend="dense"` computes `register_pairs`'
+FPFH by `features/fpfh_dense.py:fpfh_dense` instead of K2/K3.
 `icp_backend="while"` runs the convergence-tested `icp_point_to_point`
 (K1) instead of the mega kernels, in both. On the card each stage's
 kernel runs; on the CPU (`device="cpu"`) each kernel's plain version runs.
@@ -28,6 +32,8 @@ from pctpu_torch.core import se3
 from pctpu_torch.core.cloud import PointCloud
 from pctpu_torch.device import DeviceLike, f32_square, resolve_device
 from pctpu_torch.features.fpfh import fpfh
+from pctpu_torch.features.fpfh_dense import fpfh_dense
+from pctpu_torch.features.iss import iss_keypoints
 from pctpu_torch.features.matching import match_features
 from pctpu_torch.features.pallas_fpfh import fpfh_fused
 from pctpu_torch.ops.gather import gather_points
@@ -42,6 +48,8 @@ from pctpu_torch.register.ransac import (Sampler, generator_sampler,
                                          ransac_registration_batch)
 
 ICP_BACKENDS = ("auto", "mega", "while")
+KEYPOINTS = ("all", "iss")
+FEATURE_BACKENDS = ("auto", "fused", "dense")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,7 +57,13 @@ class RegistrationConfig:
     """The reference's `RegistrationConfig` fields, with the same defaults
     (`pctpu/register/pipeline.py:31-95`). `icp_backend` "auto" and "mega"
     run the mega kernels on the card (their plain versions on the CPU);
-    "while" runs `icp_point_to_point`."""
+    "while" runs `icp_point_to_point`. `keypoints` "all" matches every
+    capped voxel point, "iss" only the ISS keypoints of each voxel cloud
+    (`iss_*`: the PCL wrapper's ISS parameters). `feature_backend` picks
+    `register_pairs`' FPFH: "auto" and "fused" run K2/K3 on the card (their
+    plain versions on the CPU), "dense" runs `fpfh_dense`. The reference's
+    "auto" means "fused" on the TPU and "dense" elsewhere, so a comparison
+    with the JAX package on the CPU names the backend."""
     voxel_size: float = 2.0
     normal_k: int = 30
     feature_radius: float = 10.0
@@ -69,37 +83,31 @@ class RegistrationConfig:
     icp_refine_iters: int = 2
     refine_subsample: int = 2048
     stats_subsample: int = 1024
-
-    # reference fields that select a path: the port runs only these values
-    _PATH = {"keypoints": ("all",), "feature_backend": ("auto", "fused")}
-    # reference fields read only by a path the port does not have (the ISS
-    # keypoint option, keypoints="iss", which from_dict refuses)
-    _UNUSED = ("iss_salient_radius", "iss_nonmax_radius",
-               "iss_min_neighbors", "iss_k_cap")
+    keypoints: str = "all"
+    iss_salient_radius: float = 3.0
+    iss_nonmax_radius: float = 2.0
+    iss_min_neighbors: int = 5
+    iss_k_cap: int = 64
+    feature_backend: str = "auto"
 
     def __post_init__(self):
-        if self.icp_backend not in ICP_BACKENDS:
-            raise ValueError(f"icp_backend={self.icp_backend!r}: expected "
-                             f"one of {ICP_BACKENDS}")
+        for name, allowed in (("icp_backend", ICP_BACKENDS),
+                              ("keypoints", KEYPOINTS),
+                              ("feature_backend", FEATURE_BACKENDS)):
+            if getattr(self, name) not in allowed:
+                raise ValueError(f"{name}={getattr(self, name)!r}: expected "
+                                 f"one of {allowed}")
 
     @classmethod
     def from_dict(cls, d: dict) -> "RegistrationConfig":
         """Build from `dataclasses.asdict(pctpu...RegistrationConfig(...))`.
-        Raises on a value that selects another path than the port's, and
-        on a key the reference does not have."""
+        Raises on a key the reference does not have and on a value it
+        does not take."""
         own = {f.name for f in dataclasses.fields(cls)}
-        kw = {}
-        for key, val in d.items():
-            if key in own:
-                kw[key] = val
-            elif key in cls._PATH:
-                if val not in cls._PATH[key]:
-                    raise ValueError(
-                        f"{key}={val!r}: the port runs only "
-                        f"{cls._PATH[key]}")
-            elif key not in cls._UNUSED:
-                raise ValueError(f"unknown RegistrationConfig field {key!r}")
-        return cls(**kw)
+        unknown = sorted(set(d) - own)
+        if unknown:
+            raise ValueError(f"unknown RegistrationConfig field(s) {unknown}")
+        return cls(**d)
 
 
 class RegistrationOutput(NamedTuple):
@@ -148,6 +156,26 @@ def _icp_stats_subsampled(T, src: PointCloud, dst: PointCloud,
     return num * stride, rmse
 
 
+def keypoint_sites(down: PointCloud,
+                   cfg: RegistrationConfig) -> torch.Tensor:
+    """The matching sites of one voxel cloud ([N]) or a batch ([B,N]), a
+    bool mask shaped as `down.mask`: every valid point, or
+    (keypoints="iss") each cloud's ISS keypoints, one cloud at a time
+    (`radius_search` takes one cloud). Both entry points take their sites
+    from here."""
+    if cfg.keypoints == "all":
+        return down.mask
+    if down.points.dim() == 2:
+        return keypoint_sites(PointCloud(down.points[None], down.mask[None]),
+                              cfg)[0]
+    return torch.stack([
+        iss_keypoints(p, mask=m, salient_radius=cfg.iss_salient_radius,
+                      non_max_radius=cfg.iss_nonmax_radius,
+                      min_neighbors=cfg.iss_min_neighbors,
+                      k_cap=cfg.iss_k_cap).keypoint_mask & m
+        for p, m in zip(down.points, down.mask)])
+
+
 def register_pairs(src: PointCloud, dst: PointCloud,
                    cfg: RegistrationConfig = RegistrationConfig(),
                    sampler: Optional[Sampler] = None,
@@ -172,18 +200,24 @@ def register_pairs(src: PointCloud, dst: PointCloud,
         down, nv = voxel_downsample_capped(pc.points, pc.mask,
                                            cfg.voxel_size,
                                            cfg.downsample_capacity)
-        # the capped voxel clouds are cell-lexsorted (valid prefix x-sorted
-        # up to one leaf), so the exact x-band pruning applies
-        feats = fpfh_fused(down.points, mask=down.mask,
-                           radius=cfg.feature_radius,
-                           normal_radius=cfg.normal_radius,
-                           x_banded=True, x_slack=cfg.voxel_size)
+        if cfg.feature_backend == "dense":
+            feats = fpfh_dense(down.points, mask=down.mask,
+                               radius=cfg.feature_radius,
+                               normal_radius=cfg.normal_radius)
+        else:
+            # the capped voxel clouds are cell-lexsorted (valid prefix
+            # x-sorted up to one leaf), so the exact x-band pruning applies
+            feats = fpfh_fused(down.points, mask=down.mask,
+                               radius=cfg.feature_radius,
+                               normal_radius=cfg.normal_radius,
+                               x_banded=True, x_slack=cfg.voxel_size)
         return down, feats, nv
 
     sdown, sfeat, s_nv = preprocess(src)
     ddown, dfeat, d_nv = preprocess(dst)
-    matches = match_features(sfeat, dfeat, src_mask=sdown.mask,
-                             dst_mask=ddown.mask, mutual=True)
+    matches = match_features(sfeat, dfeat,
+                             src_mask=keypoint_sites(sdown, cfg),
+                             dst_mask=keypoint_sites(ddown, cfg), mutual=True)
     dst_kp = gather_points(ddown.points, matches.dst_idx)
     rr = ransac_registration_batch(
         sdown.points, dst_kp, matches.valid, sampler,
@@ -237,20 +271,22 @@ def _cap_uniform(down: PointCloud, cap: int):
 
 def _front_end(src: PointCloud, dst: PointCloud, sampler: Sampler,
                cfg: RegistrationConfig):
-    """voxel -> FPFH (neighbour lists) -> mutual matching -> RANSAC global
-    init, for one pair."""
+    """voxel -> FPFH (neighbour lists) -> mutual matching over the sites
+    (every voxel point, or its ISS keypoints) -> RANSAC global init, for
+    one pair."""
 
     def preprocess(pc: PointCloud):
         down = voxel_downsample(pc.points, pc.mask, cfg.voxel_size)
         down, nv = _cap_uniform(down, cfg.downsample_capacity)
         feats = fpfh(down.points, mask=down.mask, radius=cfg.feature_radius,
                      k_cap=cfg.feature_k_cap, normal_k=cfg.normal_k)
-        return down, feats, nv
+        sites = keypoint_sites(down, cfg)
+        return down, feats, sites, nv
 
-    sdown, sfeat, s_nv = preprocess(src)
-    ddown, dfeat, d_nv = preprocess(dst)
-    matches = match_features(sfeat, dfeat, src_mask=sdown.mask,
-                             dst_mask=ddown.mask, mutual=True)
+    sdown, sfeat, s_sites, s_nv = preprocess(src)
+    ddown, dfeat, d_sites, d_nv = preprocess(dst)
+    matches = match_features(sfeat, dfeat, src_mask=s_sites,
+                             dst_mask=d_sites, mutual=True)
     dst_kp = gather_points(ddown.points, matches.dst_idx)
     rr = ransac_registration(sdown.points, dst_kp, matches.valid, sampler,
                              dist_thresh=cfg.ransac_dist,

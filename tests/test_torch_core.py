@@ -75,7 +75,12 @@ def test_port_imports_no_jax_or_pctpu():
                    "pipelines/kitti_frames.py", "pipelines/kitti_eval.py",
                    "pipelines/analytics.py", "pipelines/trainset.py",
                    "pipelines/kitti_etl.py", "pipelines/detect.py",
-                   "pipelines/miniworld.py"):
+                   "pipelines/miniworld.py", "features/__init__.py",
+                   "features/nms.py", "features/iss.py",
+                   "features/harris.py", "features/sift3d.py",
+                   "features/shot.py", "features/fpfh_dense.py",
+                   "features/margins.py", "ops/__init__.py", "ops/box3d.py",
+                   "models/pointrcnn.py"):
         assert f"pctpu_torch/{module}" in names, module
     bad = [(str(f.relative_to(REPO)), mod) for f in files
            for mod in _imports(f) if mod.split(".")[0] in FORBIDDEN]

@@ -1457,3 +1457,139 @@ def test_random_voxel_card_matches_cpu(gen, cuda):
                          method="random", prio=prio)
     assert torch.equal(k.mask.cpu(), c.mask)
     assert torch.equal(k.points.cpu(), c.points)
+
+
+def _boxes_scene(gen, n=1500):
+    """A ground plane and four boxes' faces, about 16 x 16 m."""
+    g = gen.uniform(-8, 8, (n // 2, 3))
+    g[:, 2] = gen.normal(scale=0.02, size=n // 2)
+    pts = [g]
+    for _ in range(4):
+        c = np.append(gen.uniform(-6, 6, 2), 0.0)
+        e = gen.uniform(0.8, 2.0, 3)
+        u = gen.uniform(-0.5, 0.5, (n // 8, 3))
+        rows, ax = np.arange(n // 8), gen.integers(0, 3, n // 8)
+        u[rows, ax] = np.sign(u[rows, ax]) * 0.5
+        pts.append(c + u * e + [0.0, 0.0, e[2] / 2])
+    return np.concatenate(pts).astype(np.float32)
+
+
+def test_iou_and_nms_rotated_card_match_cpu(gen, cuda):
+    """Rotated BEV/3D IoU within 1e-5 and greedy NMS (equal scores
+    included) index for index, card against CPU."""
+    from pctpu_torch.ops import box3d
+    boxes = np.concatenate([
+        gen.uniform(-3, 3, (60, 2)), gen.uniform(-1, 1, (60, 1)),
+        gen.uniform(0.5, 4.0, (60, 3)), gen.uniform(-np.pi, np.pi, (60, 1))],
+        axis=1).astype(np.float32)
+    for fn in (box3d.iou_bev, box3d.iou3d):
+        torch.testing.assert_close(fn(_t(boxes, cuda), _t(boxes, cuda)).cpu(),
+                                   fn(_t(boxes, "cpu"), _t(boxes, "cpu")),
+                                   rtol=0, atol=1e-5)
+    for scores in (gen.uniform(size=60), np.ones(60)):
+        s = scores.astype(np.float32)
+        k = box3d.nms_rotated(_t(boxes, cuda), _t(s, cuda), 0.3, 80)
+        c = box3d.nms_rotated(_t(boxes, "cpu"), _t(s, "cpu"), 0.3, 80)
+        assert torch.equal(k[0].cpu(), c[0]) and torch.equal(k[1].cpu(), c[1])
+
+
+def test_iss_keypoints_card_match_cpu(gen, cuda):
+    """ISS on a boxes scene: the same keypoints on the card as on the
+    CPU, eigenvalues within 1e-4 of each point's largest."""
+    from pctpu_torch.features.iss import iss_keypoints
+    p = _boxes_scene(gen)
+    k = iss_keypoints(_t(p, cuda), salient_radius=1.0, non_max_radius=0.7)
+    c = iss_keypoints(_t(p, "cpu"), salient_radius=1.0, non_max_radius=0.7)
+    assert torch.equal(k.keypoint_mask.cpu(), c.keypoint_mask)
+    assert int(c.keypoint_mask.sum()) >= 20
+    err = (k.eigvals.cpu() - c.eigvals).abs() / c.eigvals[:, :1].clamp_min(
+        1e-12)
+    assert float(err.max()) <= 1e-4
+
+
+def test_proposal_net_card_matches_cpu(gen, cuda):
+    """ProposalNet (npoints 128, 32) at B 2 x 512 x 4, eval: the card's
+    logits and residuals within 1e-4 of the CPU's."""
+    from pctpu_torch.models.pointnet2 import morton_sort_packed
+    from pctpu_torch.models.pointrcnn import ProposalNet
+    pc = morton_sort_packed(_t(np.concatenate([
+        gen.uniform(-8, 8, (2, 512, 3)), gen.uniform(size=(2, 512, 1))],
+        -1).astype(np.float32), "cpu"))
+    model = ProposalNet(npoints=(128, 32), in_channels=4,
+                        generator=torch.Generator().manual_seed(0)).eval()
+    with torch.no_grad():
+        cs, cr = model(pc)
+        ks, kr = model.to(cuda)(pc.to(cuda))
+    torch.testing.assert_close(ks.cpu(), cs, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(kr.cpu(), cr, rtol=1e-4, atol=1e-4)
+
+
+def _walls_scene(gen, n=2000):
+    """Ground over 40 x 40 m and four box walls (tests/test_pipeline.py:
+    15-33)."""
+    g = gen.uniform(-20, 20, (n // 2, 3))
+    g[:, 2] = gen.normal(scale=0.05, size=n // 2)
+    pts = [g]
+    for _ in range(4):
+        c, w, h = gen.uniform(-15, 15, 2), gen.uniform(1, 3, 2), \
+            gen.uniform(2, 5)
+        face = gen.uniform(-1, 1, (n // 8, 3))
+        face[:, 0] = c[0] + w[0] * np.sign(face[:, 0])
+        face[:, 1] = c[1] + w[1] * face[:, 1]
+        face[:, 2] = h * (face[:, 2] + 1) / 2
+        pts.append(face)
+    return np.concatenate(pts).astype(np.float32)
+
+
+def test_register_pairs_iss_card_matches_cpu(cuda):
+    """`register_pairs(keypoints="iss")` on the 2-pair walls scene of
+    tests/test_torch_pipeline.py (seed 0, 10 and 17 deg) at voxel 1.0:
+    K1-K4 launch (K2/K3 twice, K4 twice, K1 once); at least 10 matches a
+    pair on either side; the card's poses within the success bound and
+    within 0.05 m and 0.5 deg of the CPU's with the same draws (K3 sums in
+    another order than its plain version's matmul), its matches within 3
+    of the CPU's."""
+    from pctpu_torch.core import se3
+    from pctpu_torch.core.cloud import PointCloud
+    from pctpu_torch.register import pipeline
+    from pctpu_torch.register.ransac import generator_sampler
+    rng = np.random.default_rng(0)
+    src = _walls_scene(rng)
+    gts, dsts = [], []
+    for i in range(2):
+        a = np.radians(10.0 + 7.0 * i)
+        T = np.eye(4, dtype=np.float32)
+        T[:3, :3] = [[np.cos(a), -np.sin(a), 0], [np.sin(a), np.cos(a), 0],
+                     [0, 0, 1]]
+        T[:3, 3] = [2.0 + i, -1.0, 0.1 * i]
+        gts.append(T)
+        dsts.append(src @ T[:3, :3].T + T[:3, 3]
+                    + rng.normal(scale=0.02, size=src.shape))
+    srcs, dst = np.stack([src, src]), np.stack(dsts).astype(np.float32)
+    mask = np.ones((2, len(src)), bool)
+    cfg = pipeline.RegistrationConfig(
+        voxel_size=1.0, feature_radius=5.0, ransac_dist=1.5,
+        ransac_hypotheses=2048, icp_dist_thresh=2.0,
+        downsample_capacity=1024, keypoints="iss")
+
+    def sampler(nv, H):
+        return generator_sampler(torch.Generator().manual_seed(0))(
+            nv.cpu(), H).to(nv.device)
+    counted = (pallas_nn.nn1, pallas_fpfh.spfh, pallas_fpfh.wsum,
+               pallas_icp_mega.icp_mega_batch)
+    before = [f.launches for f in counted]
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        out[dev.type] = pipeline.register_pairs(
+            PointCloud(_t(srcs, dev), _t(mask, dev)),
+            PointCloud(_t(dst, dev), _t(mask, dev)), cfg=cfg,
+            sampler=sampler, device=dev)
+    assert [f.launches - b for f, b in zip(counted, before)] == [1, 2, 2, 2]
+    rte, rre = se3.pose_diff_rte_rre(out["cuda"].T.cpu(),
+                                     torch.from_numpy(np.stack(gts)))
+    assert float(rte.max()) < 2.0 and float(rre.max()) < 5.0
+    drte, drre = se3.pose_diff_rte_rre(out["cuda"].T.cpu(), out["cpu"].T)
+    assert float(drte.max()) < 0.05 and float(drre.max()) < 0.5
+    assert int((out["cuda"].num_matches.cpu()
+                - out["cpu"].num_matches).abs().max()) <= 3
+    assert min(int(o.num_matches.min()) for o in out.values()) >= 10

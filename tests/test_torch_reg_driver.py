@@ -102,6 +102,27 @@ def test_driver_cli_batched_matches_reference_format(dataset, tmp_path):
         (0, 1), (0, 2), (1, 2)]
 
 
+def test_driver_cli_keypoints_iss(dataset, tmp_path, monkeypatch):
+    """`main --keypoints iss`: the config reaches `register_pairs` with
+    ISS matching sites, and every pair lands within the reference's
+    success bound as its evaluate_rt scores the file."""
+    seen = []
+    run = driver.register_pairs
+
+    def spy(*args, cfg, **kw):
+        seen.append(cfg.keypoints)
+        return run(*args, cfg=cfg, **kw)
+    monkeypatch.setattr(driver, "register_pairs", spy)
+    out = str(tmp_path / "result.txt")
+    res = driver.main(["--dataset", str(dataset), "--pairs",
+                       str(dataset / "pairs.txt"), "--output", out, "--gt",
+                       str(dataset / "gt.txt"), "--batch-size", "2",
+                       "--keypoints", "iss"] + ARGS)
+    assert seen == ["iss", "iss"] and res["n_failed"] == 0
+    assert jevaluate.evaluate_rt(str(dataset / "gt.txt"),
+                                 out)["n_success"] == 3
+
+
 def test_driver_per_pair_isolates_a_failing_pair(dataset, tmp_path):
     """batch_size 1 (`register_pair` per pair): a pair whose cloud file is
     missing is written as the identity and counted as failed; the other
