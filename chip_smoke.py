@@ -90,7 +90,20 @@ hand-written kernel against its plain PyTorch version:
   P25 keypoints and descriptors on P1's first cloud and its voxel cloud:
      ISS, Harris3D (both measures), Harris6D, SIFT3D, SHOT-352 at the ISS
      keypoints, PCA, timed on the card on the whole cloud and held against
-     the CPU on every other point of it.
+     the CPU on every other point of it;
+  P26 the grid hash (`ops.grid_hash`: build_grid, grid_nearest, grid_knn,
+     grid_radius) on a 16,384-point cut of P1's scan, card against CPU and
+     against K1, and on points on the faces of 0.1 m cells; then
+     `icp_fixed_iters_grid` on the whole scan offset by 6 deg and 0.4 m
+     (`tests/test_register.py:189`), 30 iterations, and on a 16,384-point
+     pair card against CPU: no kernel (the reference's grid search reaches
+     no Pallas kernel);
+  P27 the host code: the native loader (`native.batch_read_velodyne`,
+     `voxel_count`) on 4 scans written under build/chip_smoke_host/, the
+     C++ KD-tree and octree on the scan against brute force, the
+     neighbour-search CLI (`pipelines.nn_benchmark`: K1 in its 1-NN row),
+     `utils.profiling` (`measure_mfu`, `profiler_trace`) and the
+     `utils.viz` PLY writers.
 
 P13-P14 build their worlds and scans from fixed seeds as `bench.py` and
 the test do (rng 5 and 0); P15 writes its files under
@@ -1889,6 +1902,363 @@ def keypoints_phase(paths, cloud, voxel_cloud, pm, torch):
 
 
 # ---------------------------------------------------------------------------
+# P26, P27: the grid hash and grid ICP, host spatial code, CLI, utilities
+# ---------------------------------------------------------------------------
+
+GRID_CELL, GRID_CAP = 1.0, 64       # chosen in a CPU rehearsal (PERF.md §5)
+GRID_CUT_CAP = 8                    # the same cell occupancy on the 16k cut
+GRID_ICP = dict(iters=30, dist_thresh=5.0, cell_size=GRID_CELL)
+F32_U = 2.0 ** -24                  # float32 unit roundoff
+
+
+def grid_pair(full, rng, n=None):
+    """`tests/test_register.py:189`'s offset (6 deg about a random axis,
+    a 0.4 m-scaled normal translation) on the scan or an n-point cut of
+    it, with 1 cm noise. Returns (src, dst, T)."""
+    from scipy.spatial.transform import Rotation
+    axis = rng.normal(size=3)
+    axis /= np.linalg.norm(axis)
+    t = rng.normal(size=3) * 0.4
+    src = full if n is None else full[rng.choice(full.shape[0], n,
+                                                 replace=False)]
+    rotvec = np.radians(6.0) * axis
+    dst, T = perturb(src, rng, rotvec, t)
+    return src, dst, T
+
+
+def grid_phase(paths, mods, full, seed, gm, dev, torch,
+               k5_ms_per_iter=None):
+    """P26: `build_grid` and `grid_nearest` / `grid_knn` / `grid_radius`
+    on the scan, and `icp_fixed_iters_grid` (no kernel: the reference's
+    grid search reaches no Pallas kernel).
+    - On a 16,384-point cut (8 a cell: the full scan's occupancy at 64),
+      every output equal to the CPU's (idx, d2, valid, count, found).
+      With a cap above the cut's densest cell, every query whose K1
+      neighbour lies within the cell size found, its d2 within 4 float32
+      units of K1's `nearest` (the grid's d2 rounds as a chain of fused
+      multiply-adds, as the reference's XLA CPU program does; K1 rounds
+      each product and sum); K1's launch there equal to its plain
+      version.
+    - Points on the faces of 0.1 cells: the card's keys equal the CPU's.
+    - The grid ICP on the whole scan offset by 6 deg and 0.4 m, 30
+      iterations, cell 1 m, 64 a cell: RTE < 0.05 m (`bench.py:288`) and
+      RRE < 0.5 deg; ms per iteration by CUDA events; the loop again step
+      by step, its pose within 1e-6, printing the candidates the cap
+      drops each iteration (`_gather_candidates`' third output). On a
+      16,384-point pair (8 a cell: the full scan's occupancy) the card's
+      pose within 1e-4 of the CPU's.
+    Returns the metrics."""
+    from pctpu_torch.device import f32_square
+    G, icp, se3, knn = gm["grid_hash"], gm["icp"], gm["se3"], gm["knn"]
+    faces_cloud = gm["faces_cloud"]
+    cpu = torch.device("cpu")
+    out = {}
+    rng = np.random.default_rng([seed, 26])
+
+    # the grid functions on a 16,384-point cut, card against CPU
+    cut = full[rng.choice(full.shape[0], N_POINTS, replace=False)]
+    qs = (cut + rng.normal(scale=0.2, size=cut.shape)).astype(np.float32)
+    qs[-1] = [500.0, 500.0, 500.0]                     # no point near
+    kw = dict(cap_per_cell=GRID_CUT_CAP, query_chunk=2048)
+    res = []
+    for d in (dev, cpu):
+        g = G.build_grid(torch.from_numpy(cut).to(d), cell_size=GRID_CELL)
+        q = torch.from_numpy(qs).to(d)
+        res.append((g, G.grid_nearest(g, q, **kw), G.grid_knn(g, q, 8, **kw),
+                    G.grid_radius(g, q, GRID_CELL, 64, **kw)))
+    for a, b in zip(*res):
+        for x, y in zip(a, b):
+            need(torch.equal(x.cpu(), y), "P26 grid card vs CPU")
+    found = res[0][1][2]
+    need(not bool(found[-1]) and float(found.float().mean()) > 0.9,
+         "P26 found", float(found.float().mean()))
+    # against K1, the cap above the densest cell: nothing is dropped
+    cells = np.floor((cut - cut.min(0)) / np.float32(GRID_CELL))
+    densest = int(np.unique(cells, axis=0, return_counts=True)[1].max())
+    g = res[0][0]
+    q = torch.from_numpy(qs).to(dev)
+    dropped = int(G._gather_candidates(g, q, densest)[2].sum())
+    need(dropped == 0, "P26 overflow at the densest cap", dropped)
+    gd2, gidx, gfound = G.grid_nearest(g, q, cap_per_cell=densest,
+                                       query_chunk=512)
+    with recording_k1_k4(mods["pallas_nn"], mods["pallas_fpfh"],
+                         mods["pallas_icp_mega"]) as rec:
+        kd2, kidx = paths.run("grid_vs_k1", lambda: knn.nearest(
+            q, torch.from_numpy(cut).to(dev)), {"nn1": 1})
+    out["kernels_vs_plain"] = check_path_kernels(mods, rec, torch)
+    # K1's neighbour within the cell size lies in the query's stencil
+    within = kd2 < f32_square(GRID_CELL)
+    need(bool(gfound[within].all()), "P26 found within the cell")
+    gap = (gd2 - kd2).abs()[within]
+    rel = float((gap / kd2[within].clamp_min(1e-30)).max())
+    need(bool((gap <= 4 * F32_U * kd2[within]).all()), "P26 d2 vs K1", rel)
+    out["grid_vs_k1"] = dict(
+        found=int(gfound.sum()), within_cell=int(within.sum()),
+        densest_cell=densest,
+        d2_equal_share=float((gd2 == kd2)[within].float().mean()),
+        idx_equal_share=float((gidx == kidx)[within].float().mean()),
+        max_rel_d2_gap=rel)
+
+    # points on cell faces at cell size 0.1
+    fp = faces_cloud()
+    gc = G.build_grid(torch.from_numpy(fp), cell_size=0.1)
+    gg = G.build_grid(torch.from_numpy(fp).to(dev), cell_size=0.1)
+    need(torch.equal(gg.keys.cpu(), gc.keys)
+         and torch.equal(gg.order.cpu(), gc.order), "P26 face keys")
+    recip = torch.floor(torch.from_numpy(fp).to(dev) / 0.1).int()
+    moved = int((recip != G._cells(torch.from_numpy(fp).to(dev), gg.origin,
+                                   gg.cell_size)).any(1).sum())
+    out["faces"] = dict(points=int(fp.shape[0]), moved_by_reciprocal=moved)
+
+    # the grid ICP on the whole scan
+    src, dst, T_gt = grid_pair(full, rng)
+    s, d_ = (torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+             for x in (src, dst))
+    m = torch.ones((src.shape[0],), dtype=torch.bool, device=dev)
+
+    def run():
+        return icp.icp_fixed_iters_grid(s, m, d_, m, cap_per_cell=GRID_CAP,
+                                        device=dev, **GRID_ICP)
+    T = paths.run("grid_icp", run, {})
+    rte, rre = gate("P26 grid ICP", T, T_gt, se3, torch, rte_max=0.05)
+    need(rre < 0.5, "P26 grid ICP RRE", rre)
+    ms = cuda_ms(run, reps=1, warmup=0)
+    # the same call in 16,384-query chunks (the same result): how much of
+    # it is the host launching 61 chunks' passes an iteration
+    big_ms = cuda_ms(lambda: icp.icp_fixed_iters_grid(
+        s, m, d_, m, cap_per_cell=GRID_CAP, query_chunk=16384, device=dev,
+        **GRID_ICP), reps=1, warmup=0)
+    # the loop again step by step (icp_fixed_iters_grid's body): the
+    # candidates the cap drops each iteration, and the same pose
+    grid = G.build_grid(d_, m, cell_size=GRID_CELL)
+    thresh2 = f32_square(min(GRID_ICP["dist_thresh"], GRID_CELL))
+    Ti, overflow = torch.eye(4, device=dev), []
+    for _ in range(GRID_ICP["iters"]):
+        st = se3.apply_transform(Ti, s)
+        overflow.append(int(G._gather_candidates(grid, st, GRID_CAP)[2]
+                            .sum()))
+        gd, gi, gf = G.grid_nearest(grid, st, cap_per_cell=GRID_CAP)
+        R, t = icp.weighted_procrustes(st, icp.gather_points(d_, gi),
+                                       (m & gf & (gd < thresh2)).float())
+        Ti = se3.make_transform(R, t) @ Ti
+    steps_err = float((Ti - T).abs().max())
+    need(steps_err <= 1e-6, "P26 grid ICP step by step", steps_err)
+    out["grid_icp"] = dict(points=int(src.shape[0]), rte=rte, rre=rre,
+                           call_ms=ms, ms_per_iter=ms / GRID_ICP["iters"],
+                           iters_per_s=GRID_ICP["iters"] / (ms / 1e3),
+                           chunk16384_ms_per_iter=big_ms / GRID_ICP["iters"],
+                           p3_kernel5_ms_per_iter=k5_ms_per_iter,
+                           overflow_per_iter=overflow,
+                           step_by_step_err=steps_err, **GRID_ICP,
+                           cap_per_cell=GRID_CAP)
+    out["profile_grid_nearest"] = profile(
+        "grid_nearest (full scan)", lambda: G.grid_nearest(
+            grid, s, cap_per_cell=GRID_CAP), torch, top=6)
+
+    # a 16,384-point pair: the card's pose against the CPU's
+    ps, pd, pT = grid_pair(full, rng, N_POINTS)
+    pm_ = torch.ones((N_POINTS,), dtype=torch.bool)
+    poses = {}
+    for name, d in (("card", dev), ("cpu", cpu)):
+        t0 = time.perf_counter()
+        poses[name] = icp.icp_fixed_iters_grid(
+            torch.from_numpy(ps), pm_, torch.from_numpy(pd), pm_,
+            cap_per_cell=GRID_CUT_CAP, device=d, **GRID_ICP).cpu()
+        out[f"pair_{name}_s"] = time.perf_counter() - t0
+    err = float((poses["card"] - poses["cpu"]).abs().max())
+    need(err <= 1e-4, "P26 grid ICP card vs CPU", err)
+    prte, prre = gate("P26 grid ICP pair", poses["card"], pT, se3, torch,
+                      rte_max=0.05)
+    out["pair"] = dict(points=N_POINTS, err_vs_cpu=err, rte=prte, rre=prre,
+                       cap_per_cell=GRID_CUT_CAP)
+    print(f"P26 grid ICP on {src.shape[0]} pts, {GRID_ICP['iters']} iters "
+          f"(cell {GRID_CELL} m, {GRID_CAP} a cell): RTE {rte:.5f} m, RRE "
+          f"{rre:.5f} deg; {ms:.1f} ms per call = {ms / GRID_ICP['iters']:.2f}"
+          f" ms per iteration ({GRID_ICP['iters'] / (ms / 1e3):.1f} iters/s;"
+          f" {big_ms / GRID_ICP['iters']:.2f} in 16,384-query chunks; P3's "
+          f"kernel 5 {k5_ms_per_iter or float('nan'):.3f} an iteration)")
+    print(f"    candidates the per-cell cap dropped, per iteration: "
+          f"{overflow[0]} (first) .. {overflow[-1]} (last), "
+          f"{overflow[-1] / src.shape[0]:.0f} a query (the loop step by "
+          f"step: pose within {steps_err:.1e})")
+    print(f"    16,384-pt cut, card = CPU (nearest, knn, radius); vs K1: "
+          f"d2 equal {out['grid_vs_k1']['d2_equal_share']:.4f}, idx equal "
+          f"{out['grid_vs_k1']['idx_equal_share']:.4f}, max rel gap "
+          f"{out['grid_vs_k1']['max_rel_d2_gap']:.2e}; face keys equal "
+          f"({moved} of {fp.shape[0]} points moved by 1/0.1); pair card vs "
+          f"CPU {err:.1e} (CPU {out['pair_cpu_s']:.1f} s)")
+    print(kernels_line("P26", out["kernels_vs_plain"]))
+    return out
+
+
+def host_phase(paths, mods, full, workdir, hm, dev, torch):
+    """P27: the native loader and trees, the neighbour-search CLI and the
+    host utilities.
+    - 4 scans written as velodyne .bin files (x, y, z, intensity):
+      `batch_read_velodyne` equal to `np.fromfile` for each, None for a
+      missing path; `voxel_count` of the scan at 0.5 m equal to the count
+      of unique floored cells.
+    - `KDTree` and `Octree` on the scan: `knn` (k 8: the neighbours) and
+      `radius` (1 m, cap 64: the count, and the neighbours where they fit)
+      on 8,192 of its points equal to brute force (float64 on the card)
+      but where a point lies within 1e-6 of the k-th distance or of the
+      radius; the comparison counters printed.
+    - `nn_benchmark.main` on one written scan: every row printed, and
+      K1 launched (its 1-NN row, warm-up and timed call), each launch
+      equal to its plain version.
+    - `measure_mfu` of a 4,096^3 float32 matmul: 0 < mfu <= 1.05 against
+      `PEAK_FLOPS["float32"]`; `profiler_trace` writes a trace; the `viz`
+      writers write non-empty PLYs.
+    Returns the metrics."""
+    import io as pyio
+    native, spatial = hm["native"], hm["spatial"]
+    nn_benchmark, profiling, viz = (hm["nn_benchmark"], hm["profiling"],
+                                    hm["viz"])
+    out = {}
+    shutil.rmtree(workdir, ignore_errors=True)
+    workdir.mkdir(parents=True)
+    t0 = time.perf_counter()
+    for name in native.LIBS:                     # g++, before any timing
+        native.load(name)
+    out["native_build_s"] = time.perf_counter() - t0
+    rng = np.random.default_rng(27)
+    paths_ = []
+    for i in range(4):
+        pts = full if i == 0 else full[rng.choice(full.shape[0],
+                                                  full.shape[0] // (i + 1),
+                                                  replace=False)]
+        scan = np.concatenate([pts, rng.uniform(size=(len(pts), 1))],
+                              1).astype(np.float32)
+        p = workdir / f"{i:06d}.bin"
+        scan.tofile(p)
+        paths_.append(str(p))
+    t0 = time.perf_counter()
+    read = native.batch_read_velodyne(paths_ + [str(workdir / "none.bin")])
+    out["batch_read_ms"] = (time.perf_counter() - t0) * 1e3
+    for p, got in zip(paths_, read):
+        need(np.array_equal(got, np.fromfile(p, np.float32).reshape(-1, 4)
+                            [:, :3]), "P27 batch_read_velodyne", p)
+    need(read[-1] is None, "P27 missing path")
+    cells = np.floor((full - full.min(0)) / np.float32(0.5)).astype(np.int64)
+    want = len(np.unique(cells, axis=0))
+    got = native.voxel_count(full, 0.5)
+    need(got == want, "P27 voxel_count", got, want)
+    out["voxel_count"] = got
+
+    # the trees against brute force on the card
+    q = full[rng.choice(full.shape[0], 8192, replace=False)]
+    k, r, cap = 8, 1.0, 64
+    qd, fd = (torch.from_numpy(x).to(dev).double() for x in (q, full))
+    bd, bi, bc, br, edge_r = [], [], [], [], []
+    for s0 in range(0, q.shape[0], 1024):
+        d2 = ((qd[s0:s0 + 1024, None, :] - fd[None]) ** 2).sum(-1)
+        v, i = torch.topk(d2, k + 1, largest=False)
+        bd.append(v)
+        bi.append(i)
+        near = d2 <= r * r
+        bc.append(near.sum(1))
+        v, i = torch.topk(torch.where(near, d2, float("inf")), cap,
+                          largest=False)
+        br.append(torch.where(torch.isinf(v), 1 << 30, i))
+        edge_r.append(((d2 - r * r).abs() <= 1e-6 * (r * r)).any(1))
+    bd, bi, bc, br, edge_r = (torch.cat(x).cpu()
+                              for x in (bd, bi, bc, br, edge_r))
+    ref_radius = np.sort(br.numpy(), 1)
+    # a query is ambiguous where the k-th and (k+1)-th lie within 1e-6
+    tie = (bd[:, k] - bd[:, k - 1]) <= 1e-6 * bd[:, k].clamp_min(1e-12)
+    ref_knn = np.sort(bi[:, :k].numpy(), 1)
+    out["trees"] = {}
+    for name, cls in (("kdtree", spatial.KDTree), ("octree", spatial.Octree)):
+        t0 = time.perf_counter()
+        tree = cls(full)
+        build_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        idx, d2, cmp = tree.knn(q, k)
+        knn_ms = (time.perf_counter() - t0) * 1e3
+        ok = (np.sort(idx, 1) == ref_knn).all(1) | tie.numpy()
+        need(bool(ok.all()), f"P27 {name} knn", int((~ok).sum()))
+        t0 = time.perf_counter()
+        ridx, _, cnt, rcmp = tree.radius(q, r, cap=cap)
+        radius_ms = (time.perf_counter() - t0) * 1e3
+        okc = (cnt == bc.numpy()) | edge_r.numpy()
+        need(bool(okc.all()), f"P27 {name} radius count", int((~okc).sum()))
+        # every neighbour within the radius, where they fit in the cap
+        sets = ((np.sort(np.where(ridx < 0, 1 << 30, ridx), 1) == ref_radius)
+                .all(1) | edge_r.numpy() | (cnt > cap))
+        need(bool(sets.all()), f"P27 {name} radius sets", int((~sets).sum()))
+        out["trees"][name] = dict(
+            nodes=tree.node_count, build_ms=build_ms, knn_ms=knn_ms,
+            radius_ms=radius_ms, knn_cmp_mean=float(cmp.mean()),
+            radius_cmp_mean=float(rcmp.mean()), ties=int(tie.sum()),
+            radius_edges=int(edge_r.sum()))
+
+    # the CLI on one written scan: every row, K1 launched
+    buf = pyio.StringIO()
+    with contextlib.redirect_stdout(buf), \
+            recording_k1_k4(mods["pallas_nn"], mods["pallas_fpfh"],
+                            mods["pallas_icp_mega"]) as rec:
+        paths.run("nn_benchmark", lambda: nn_benchmark.main(
+            ["--bin", paths_[0], "--device", dev.type]), {"nn1": 2})
+    out["kernels_vs_plain"] = check_path_kernels(mods, rec, torch)
+    text = buf.getvalue()
+    rows = ("pctpu_torch knn:", "pctpu_torch radius:", "pctpu_torch 1-NN:",
+            "c++ kd build:", "c++ kd knn:", "c++ kd radius:",
+            "c++ oct build:", "c++ oct knn:", "c++ oct radius:",
+            "scipy build:", "scipy knn:", "scipy radius:", "numpy brute:")
+    need(all(r_ in text for r_ in rows) and "note:" not in text,
+         "P27 nn_benchmark rows", text)
+    out["nn_benchmark"] = text
+
+    # the utilities
+    a = torch.randn(4096, 4096, device=dev)
+    b = torch.randn(4096, 4096, device=dev)
+    mm = profiling.measure_mfu(torch.matmul, a, b)
+    need(0 < mm["mfu"] <= 1.05, "P27 mfu", mm)
+    ev_ms = cuda_ms(lambda: torch.matmul(a, b), reps=5)
+    out["mfu"] = dict(mm, events_ms=ev_ms,
+                      events_mfu=profiling.mfu(mm["flops"], ev_ms / 1e3))
+    with profiling.profiler_trace(str(workdir / "trace")):
+        torch.matmul(a, b)
+        torch.cuda.synchronize()
+    traces = list((workdir / "trace").iterdir())
+    need(len(traces) == 1 and traces[0].stat().st_size > 0, "P27 trace")
+    out["trace_bytes"] = traces[0].stat().st_size
+    labels = np.arange(full.shape[0]) % 7 - 1
+    plys = {"clusters": (viz.write_clusters_ply, (full, labels)),
+            "registration": (viz.write_registration_ply,
+                             (full[:1000], full[1000:2000], np.eye(4))),
+            "keypoints": (viz.write_keypoints_ply,
+                          (full[:2000], labels[:2000] > 3)),
+            "detections": (viz.write_detections_ply, (full[:2000], [
+                {"center": [5, 0, 0.8], "dims": [3.9, 1.6, 1.5], "R": None,
+                 "class_id": 0}])),
+            "trajectory": (viz.write_trajectory_ply,
+                           (np.tile(np.eye(4), (8, 1, 1)),))}
+    for name, (fn, args) in plys.items():
+        p = workdir / f"{name}.ply"
+        fn(str(p), *args)
+        need(p.stat().st_size > 0, "P27 ply", name)
+    print(f"P27 host code: g++ of both libraries {out['native_build_s']:.1f}"
+          f" s; batch_read_velodyne of 4 scans {out['batch_read_ms']:.1f} ms,"
+          f" voxel_count {got} (0.5 m); trees on the scan, 8,192 queries = "
+          "brute force:")
+    for name, t in out["trees"].items():
+        print(f"    {name}: {t['nodes']} nodes, build {t['build_ms']:.1f} "
+              f"ms, knn {t['knn_ms']:.1f} ms ({t['knn_cmp_mean']:.0f} "
+              f"cmp/query), radius {t['radius_ms']:.1f} ms "
+              f"({t['radius_cmp_mean']:.0f} cmp/query)")
+    print("    nn_benchmark on the written scan:")
+    for line in text.strip().splitlines():
+        print("      " + line)
+    print(f"    measure_mfu 4096^3 f32: {mm['mean_s'] * 1e3:.2f} ms (host "
+          f"clock, outputs fetched) mfu {mm['mfu']:.3f}; CUDA events "
+          f"{ev_ms:.2f} ms, mfu {out['mfu']['events_mfu']:.3f}; trace "
+          f"{out['trace_bytes']} bytes; {len(plys)} PLYs written")
+    print(kernels_line("P27", out["kernels_vs_plain"]))
+    return out
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -1938,6 +2308,13 @@ def main(argv=None):
                                            miniworld, segmentation, trainset)
         from pctpu_torch.register import icp, pipeline
         from pctpu_torch.register.ransac import generator_sampler
+        from pctpu_torch import native
+        from pctpu_torch.native import spatial
+        from pctpu_torch.ops import grid_hash
+        from pctpu_torch.pipelines import nn_benchmark
+        from pctpu_torch.utils import profiling, viz
+        sys.path.insert(0, str(ROOT / "tests"))
+        from grid_faces import faces_cloud
     except ImportError as e:
         print(f"chip_smoke: the pctpu_torch package is missing ({e}); run "
               "from a checkout of the repo", file=sys.stderr)
@@ -2091,12 +2468,13 @@ def main(argv=None):
     s4, d4 = on_dev(full, w4_dst)
     m4 = torch.ones((full.shape[0],), dtype=torch.bool, device=dev)
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    w4_coarse = 48
 
     def w4_run():           # bench.py:270-281
         ev[0].record()
         T = icp.icp_fixed_iters_banded_mega(
-            s4, m4, d4, m4, coarse_iters=48, polish_iters=0, dist_thresh=5.0,
-            block=2048, window_blocks=2, query_tile=1024)
+            s4, m4, d4, m4, coarse_iters=w4_coarse, polish_iters=0,
+            dist_thresh=5.0, block=2048, window_blocks=2, query_tile=1024)
         ev[1].record()
         T = icp.icp_refine_exact(s4, m4, d4, m4, T, iters=1, subsample=16384,
                                  dist_thresh=5.0)
@@ -2112,9 +2490,10 @@ def main(argv=None):
     metrics["workload4"] = dict(
         points=int(full.shape[0]), rte=rte, rre=rre, call_ms=w4_ms,
         kernel5_ms=ev[0].elapsed_time(ev[1]),
-        refine_ms=ev[1].elapsed_time(ev[2]), iters_per_s=51 / (w4_ms / 1e3))
-    print(f"P3 workload 4 ({full.shape[0]} pts, 48+3 iters): RTE {rte:.4f} "
-          f"m, RRE {rre:.4f} deg; {w4_ms:.1f} ms per call (kernel 5 "
+        refine_ms=ev[1].elapsed_time(ev[2]), coarse_iters=w4_coarse,
+        iters_per_s=(w4_coarse + 3) / (w4_ms / 1e3))
+    print(f"P3 workload 4 ({full.shape[0]} pts, {w4_coarse}+3 iters): RTE "
+          f"{rte:.4f} m, RRE {rre:.4f} deg; {w4_ms:.1f} ms per call (kernel 5 "
           f"{metrics['workload4']['kernel5_ms']:.1f} ms) = "
           f"{metrics['workload4']['iters_per_s']:.2f} iters/s")
     # the whole workload with kernel 5 and K1 swapped for their plain
@@ -3518,6 +3897,23 @@ def main(argv=None):
         src.points[:1], mask[:1], cfg.voxel_size, cfg.downsample_capacity)
     metrics["keypoints"] = keypoints_phase(
         paths, src.points[0], (vdown.points[0], vdown.mask[0]), pm, torch)
+
+    mark("P26 the grid hash and grid ICP (no kernel)")
+    metrics["grid"] = grid_phase(
+        paths, mods, full, args.seed, dict(
+            grid_hash=grid_hash, icp=icp, se3=se3, knn=knn,
+            faces_cloud=faces_cloud), dev, torch,
+        metrics["workload4"]["kernel5_ms"]
+        / metrics["workload4"]["coarse_iters"])
+    mark("P27 host code, the neighbour-search CLI, utilities (K1)")
+    metrics["host"] = host_phase(
+        paths, mods, full, ROOT / "build" / "chip_smoke_host",
+        dict(native=native, spatial=spatial, nn_benchmark=nn_benchmark,
+             profiling=profiling, viz=viz), dev, torch)
+    rows["nn1"]["max_abs_err"] = max(
+        rows["nn1"]["max_abs_err"],
+        *(metrics[p]["kernels_vs_plain"]["nn1"]["max_abs_err"]
+          for p in ("grid", "host")))
 
     # ---- kernels line, card, result --------------------------------------
     mark(None)

@@ -208,19 +208,23 @@ def iss_bounds(points: torch.Tensor, eigvals: torch.Tensor,
 
 
 def iss_decided(points: torch.Tensor, eigvals: torch.Tensor,
-                mask: Optional[torch.Tensor] = None
+                mask: Optional[torch.Tensor] = None,
+                salient_radius: float = 3.0, non_max_radius: float = 2.0,
+                gamma_21: float = 0.975, gamma_32: float = 0.975,
+                min_neighbors: int = 5, k_cap: int = 64,
+                max_keypoints: int = 0,
+                kept: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The settled decisions of `iss_keypoints` at its defaults (PCL's:
-    salient radius 3, NMS radius 2, gammas 0.975, 5 neighbours, k_cap
-    64, no cap on the keypoints), from the reference run's eigenvalues
-    [N,3] (descending), each within its `iss_bounds`. Returns (decided
-    [N], bound [N])."""
-    gamma_21 = gamma_32 = 0.975
-    min_neighbors = 5
+    """The settled decisions of `iss_keypoints` with these parameters
+    (the defaults are PCL's), from the reference run's eigenvalues [N,3]
+    (descending), each within its `iss_bounds`. With `max_keypoints`,
+    `kept` [N] is the reference run's keep mask before the cap (its
+    `max_keypoints=0` result), and the cap's decisions are settled by
+    `top_k_decided`. Returns (decided [N], bound [N])."""
     w = eigvals.double()
     l1, l2, l3 = w[:, 0], w[:, 1], w[:, 2]
     valid = _valid(l1, mask)
-    bound, lo, hi = iss_bounds(points, eigvals, mask, 3.0, 64)
+    bound, lo, hi = iss_bounds(points, eigvals, mask, salient_radius, k_cap)
     m = 2 * bound                     # l2 - g l1 moves by (1 + g) bounds
     fails = ((l2 - gamma_21 * l1 > m) | (l3 - gamma_32 * l2 > m)
              | (l3 < -bound))
@@ -229,9 +233,36 @@ def iss_decided(points: torch.Tensor, eigvals: torch.Tensor,
     excluded = ~valid | (hi < min_neighbors) | fails
     certain = valid & (lo >= min_neighbors) & passes
     score = torch.where(torch.isfinite(bound), l3, float("nan"))
-    decided = nms_decided(points, score, bound, certain, excluded, 2.0,
-                          mask)
+    decided = nms_decided(points, score, bound, certain, excluded,
+                          non_max_radius, mask)
+    if max_keypoints:
+        if kept is None:
+            raise ValueError("max_keypoints needs the uncapped keep mask")
+        decided = top_k_decided(score, bound, kept.to(decided.device),
+                                decided, max_keypoints)
     return decided, bound
+
+
+def top_k_decided(score: torch.Tensor, tol, kept: torch.Tensor,
+                  decided: torch.Tensor, k: int) -> torch.Tensor:
+    """[N] bool: settled decisions of `top_k_mask(score, keep, k)`, where
+    the reference run's `keep` is `kept` [N] and settled where `decided`
+    [N]; `score` [N] as in `nms_decided` (NaN: unsure), within `tol`. A
+    point is surely in the top k when it is surely kept and fewer than k
+    other points that may be kept may score as high; surely out when it
+    is surely not kept, or k surely kept points surely outscore it."""
+    s = score.double()
+    tol = torch.as_tensor(tol, dtype=torch.float64,
+                          device=s.device).expand_as(s)
+    sure = decided & kept
+    maybe = ~decided | kept
+    margin = tol[:, None] + tol[None]
+    others = ~torch.eye(s.shape[0], dtype=torch.bool, device=s.device)
+    rivals = (maybe[None] & others
+              & ~(s[None] < s[:, None] - margin)).sum(1)
+    above = (sure[None] & (s[None] > s[:, None] + margin)).sum(1)
+    return (sure & torch.isfinite(s) & (rivals < k)) \
+        | (decided & ~kept) | (above >= k)
 
 
 def gradient_conditioning(points: torch.Tensor, normals: torch.Tensor,

@@ -8,6 +8,8 @@ from pctpu_torch.ops.box3d import (  # noqa: F401
 from pctpu_torch.ops.eigh3 import eigvalsh3  # noqa: F401
 from pctpu_torch.ops.gather import (  # noqa: F401
     gather_points, group_points, mask_group)
+from pctpu_torch.ops.grid_hash import (  # noqa: F401
+    HashGrid, build_grid, grid_knn, grid_nearest, grid_radius)
 from pctpu_torch.ops.interpolate import (  # noqa: F401
     interpolation_weights, three_interpolate, three_nn)
 from pctpu_torch.ops.knn import (  # noqa: F401

@@ -10,7 +10,8 @@ Entry points run on CUDA unless the caller passes `device="cpu"`; the
 kernels' plain versions run on the CPU. The point-to-plane 6x6 solves go
 through `torch.linalg.solve_ex`, which does not wait on the host to check
 its result, so a fixed-iteration loop on the card never syncs. The grid
-ICP (`icp_fixed_iters_grid`) is not ported yet.
+ICP `icp_fixed_iters_grid` associates through `ops.grid_hash` (plain
+PyTorch: the reference's grid search reaches no Pallas kernel).
 """
 from __future__ import annotations
 
@@ -25,6 +26,7 @@ from pctpu_torch.ops import pallas_banded as banded
 from pctpu_torch.ops import pallas_icp_mega as mega
 from pctpu_torch.ops.eigh3 import _cross
 from pctpu_torch.ops.gather import gather_points
+from pctpu_torch.ops.grid_hash import build_grid, grid_nearest
 from pctpu_torch.ops.knn import nearest
 from pctpu_torch.ops.pallas_banded import LUT_BINS, build_banded
 from pctpu_torch.register.procrustes import (procrustes_from_moments,
@@ -276,6 +278,36 @@ def icp_refine_exact(src: torch.Tensor, src_mask: torch.Tensor,
 # ---------------------------------------------------------------------------
 # banded ICP loops (K6, K7, K8)
 # ---------------------------------------------------------------------------
+
+def icp_fixed_iters_grid(src: torch.Tensor, src_mask: torch.Tensor,
+                         dst: torch.Tensor, dst_mask: torch.Tensor,
+                         init_T: Optional[torch.Tensor] = None,
+                         iters: int = 30, dist_thresh: float = 5.0,
+                         cell_size: Optional[float] = None,
+                         cap_per_cell: int = 64, query_chunk: int = 2048,
+                         device: DeviceLike = None) -> torch.Tensor:
+    """Fixed-iteration ICP with grid-hash association, the O(N) path for
+    full-resolution scans: the dst grid is built once; associations are
+    exact within min(cell_size, dist_thresh), and anything farther would
+    be rejected by the distance threshold regardless. `cell_size` None
+    means `dist_thresh`."""
+    dev = resolve_device(device)
+    src, src_mask, dst, dst_mask, init_T = _on(dev, src, src_mask, dst,
+                                               dst_mask, init_T)
+    T = _eye((), dev) if init_T is None else init_T.float()
+    if cell_size is None:
+        cell_size = dist_thresh
+    thresh2 = f32_square(min(dist_thresh, cell_size))
+    grid = build_grid(dst, dst_mask, cell_size=cell_size)
+    for _ in range(iters):
+        src_t = se3.apply_transform(T, src)
+        d2, idx, found = grid_nearest(grid, src_t, cap_per_cell=cap_per_cell,
+                                      query_chunk=query_chunk)
+        w = (src_mask & found & (d2 < thresh2)).float()
+        R, t = weighted_procrustes(src_t, gather_points(dst, idx), w)
+        T = se3.make_transform(R, t) @ T
+    return T
+
 
 def _axis_sort(src, src_mask, axis, T=None):
     """Source points [...,N,3] ordered by their (T-transformed) band-axis

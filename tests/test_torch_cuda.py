@@ -21,6 +21,8 @@ from pctpu_torch.ops.voxel import voxel_downsample_capped
 from pctpu_torch.register import icp
 from pctpu_torch.register.icp import icp_fixed_iters_banded_mega_batch
 
+from grid_faces import faces_cloud
+
 pytestmark = pytest.mark.cuda
 
 
@@ -1593,3 +1595,43 @@ def test_register_pairs_iss_card_matches_cpu(cuda):
     assert int((out["cuda"].num_matches.cpu()
                 - out["cpu"].num_matches).abs().max()) <= 3
     assert min(int(o.num_matches.min()) for o in out.values()) >= 10
+
+
+def test_grid_keys_at_cell_faces_card_match_cpu(cuda):
+    """The card's cells divide by the cell size as the CPU does (a 0-dim
+    tensor on the card), so points on cell faces get the CPU's keys."""
+    from pctpu_torch.ops import grid_hash as G
+    p = faces_cloud()
+    g_cpu = G.build_grid(torch.from_numpy(p), cell_size=0.1)
+    g_card = G.build_grid(_t(p, cuda), cell_size=0.1)
+    for name in G.HashGrid._fields:
+        assert torch.equal(getattr(g_card, name).cpu(),
+                           getattr(g_cpu, name)), name
+    # dividing by a Python float would multiply by its reciprocal there
+    recip = torch.floor((_t(p, cuda) - g_card.origin) / 0.1).int()
+    exact = G._cells(_t(p, cuda), g_card.origin, g_card.cell_size)
+    assert not torch.equal(recip, exact)
+
+
+def test_grid_nearest_card_matches_cpu(gen, cuda):
+    """grid_nearest, grid_knn and grid_radius: every output equal to the
+    CPU's, with ties, a mask, overflow and a far query."""
+    from pctpu_torch.ops import grid_hash as G
+    p = gen.uniform(0, 10, (20000, 3)).astype(np.float32)
+    p[-500:] = p[:500]
+    m = gen.uniform(size=len(p)) > 0.05
+    q = np.concatenate([gen.uniform(0, 10, (3000, 3)), p[:100],
+                        [[50.0, 50.0, 50.0]]]).astype(np.float32)
+    g_cpu = G.build_grid(torch.from_numpy(p), torch.from_numpy(m), 0.5)
+    g_card = G.build_grid(_t(p, cuda), _t(m, cuda), 0.5)
+    qc, qd = torch.from_numpy(q), _t(q, cuda)
+    pairs = [(G.grid_nearest(g_card, qd, 8, 1000),
+              G.grid_nearest(g_cpu, qc, 8, 1000)),
+             (G.grid_knn(g_card, qd, 5, 8, 1000),
+              G.grid_knn(g_cpu, qc, 5, 8, 1000)),
+             (G.grid_radius(g_card, qd, 0.5, 16, 8, 1000),
+              G.grid_radius(g_cpu, qc, 0.5, 16, 8, 1000))]
+    for card, cpu in pairs:
+        for a, b in zip(card, cpu):
+            assert torch.equal(a.cpu(), b)
+    assert not bool(pairs[0][0][2][-1])

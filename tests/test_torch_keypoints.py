@@ -7,8 +7,14 @@ plane with four boxes, noisy where a test needs well-conditioned
 neighbourhoods.
 
 Tolerances:
-- NMS, top-k, ISS and SIFT3D masks, and SHOT descriptors: equal (their
+- NMS, top-k and SIFT3D masks, and SHOT descriptors: equal (their
   inputs agree to rounding and no decision lies within it here).
+- ISS masks: equal where `margins.iss_decided` settles them, at least 95%
+  of the valid points and half of the keypoints (measured 98.8%; 144 of
+  149 keypoints uncapped, 14 of 20 capped; 1.5e3 points). The ground plane's rank-1
+  neighbourhoods put l3 within rounding of 0, so the `l3 > 0` test falls
+  either way there (two points' signs differ between the port and the
+  JAX package on one CPU), and a candidate at the NMS radius may flip.
 - ISS eigenvalues and saliency: within 1e-5 of each point's largest
   eigenvalue, except where the two smaller ones form a (near-)double
   root (l2 - l3 < 1e-3 l1: the closed-form solver's arccos turns a
@@ -131,17 +137,66 @@ def test_top_k_mask_ties_match_jax(k):
 # ISS
 # ---------------------------------------------------------------------------
 
+def _iss_kw(max_keypoints):
+    return dict(salient_radius=1.0, non_max_radius=0.7,
+                max_keypoints=max_keypoints)
+
+
 @pytest.mark.parametrize("max_keypoints", [0, 20])
 def test_iss_keypoints_match_jax(max_keypoints):
     p, mask = _scene(0)
-    kw = dict(salient_radius=1.0, non_max_radius=0.7,
-              max_keypoints=max_keypoints)
+    kw = _iss_kw(max_keypoints)
+    _check_iss(p, mask, kw, tiss.iss_keypoints(_t(p), _t(mask), **kw))
+
+
+def _scatter_summed(order):
+    """`torch.einsum` for ISS's scatter contraction ("nki,nkj->nij"),
+    summing the neighbours in another order: in reverse, or in float64
+    and rounded once, as another BLAS kernel might."""
+    einsum = torch.einsum
+
+    def contract(eq, a, b):
+        assert eq == "nki,nkj->nij", eq
+        if order == "reverse":
+            a, b = a.flip(1), b.flip(1)
+            return (a[..., :, None] * b[..., None, :]).sum(1)
+        return einsum(eq, a.double(), b.double()).float()
+    return contract
+
+
+@pytest.mark.parametrize("order", ["reverse", "float64"])
+@pytest.mark.parametrize("max_keypoints", [0, 20])
+def test_iss_checks_hold_when_the_scatter_rounds_apart(max_keypoints, order,
+                                                       monkeypatch):
+    """The parity checks hold whichever order the scatter matrix's sum
+    takes (the rounding a thread count or a CPU's BLAS kernel may change;
+    a ground-plane point's l3 then moves by as much as its own size)."""
+    p, mask = _scene(0)
+    kw = _iss_kw(max_keypoints)
+    with monkeypatch.context() as mp:
+        mp.setattr(torch, "einsum", _scatter_summed(order))
+        got = tiss.iss_keypoints(_t(p), _t(mask), **kw)
+    _check_iss(p, mask, kw, got)
+
+
+def _check_iss(p, mask, kw, got):
+    """`got` against the JAX package's ISS on the same cloud, at the
+    tolerances of the module's docstring."""
+    max_keypoints = kw["max_keypoints"]
     ref = jiss.iss_keypoints(jnp.asarray(p), jnp.asarray(mask), **kw)
-    got = tiss.iss_keypoints(_t(p), _t(mask), **kw)
     ref_m = np.asarray(ref.keypoint_mask)
-    np.testing.assert_array_equal(got.keypoint_mask.numpy(), ref_m)
     assert int(ref_m.sum()) == (max_keypoints or int(ref_m.sum())) >= 20
     w = np.asarray(ref.eigvals)
+    kept = (ref_m if not max_keypoints else np.asarray(jiss.iss_keypoints(
+        jnp.asarray(p), jnp.asarray(mask),
+        **dict(kw, max_keypoints=0)).keypoint_mask))
+    decided = margins.iss_decided(
+        _t(p), _t(w), _t(mask), salient_radius=1.0, non_max_radius=0.7,
+        max_keypoints=max_keypoints, kept=_t(kept))[0].numpy()
+    assert decided[mask].mean() > 0.95, decided[mask].mean()
+    assert (decided & ref_m).sum() >= ref_m.sum() // 2
+    np.testing.assert_array_equal(got.keypoint_mask.numpy()[decided],
+                                  ref_m[decided])
     l1 = np.maximum(w[:, :1], 1e-12)
     double = (w[:, 1] - w[:, 2]) < 1e-3 * w[:, 0]
     err = np.abs(got.eigvals.numpy() - w) / l1
