@@ -103,7 +103,19 @@ hand-written kernel against its plain PyTorch version:
      C++ KD-tree and octree on the scan against brute force, the
      neighbour-search CLI (`pipelines.nn_benchmark`: K1 in its 1-NN row),
      `utils.profiling` (`measure_mfu`, `profiler_trace`) and the
-     `utils.viz` PLY writers.
+     `utils.viz` PLY writers;
+  P28 distribution over `torch.distributed` (`parallel.launch.run_world`:
+     one process a rank; NCCL refuses two ranks on one card, so a gloo
+     world of 2 ranks shares it, its transfers staged through host
+     memory, and an NCCL world of 1 proves the NCCL path): data-parallel
+     `cls-ssg` training on P11's clouds and recipe (kernels 11, 12, 14)
+     in both worlds, its first step against `make_train_step` on all 32;
+     the full-pipeline sweep (K1-K4) and the ICP pair sweep (K1) on P1's
+     16 pairs; the point-sharded ICP on P3's pair (K1) in both worlds; the
+     halo 1-NN of P3's scan in 2 x-slabs (K1); the edge-sharded dense and
+     sparse pose-graph steps on P14's graph; `entry.dryrun_multichip(2)`.
+     Each rank counts its own launches around each path and holds each
+     recorded launch against its plain version.
 
 P13-P14 build their worlds and scans from fixed seeds as `bench.py` and
 the test do (rng 5 and 0); P15 writes its files under
@@ -2259,6 +2271,424 @@ def host_phase(paths, mods, full, workdir, hm, dev, torch):
 
 
 # ---------------------------------------------------------------------------
+# P28 distribution
+# ---------------------------------------------------------------------------
+
+P28_WORLD = 2                       # gloo ranks sharing the card
+P28_ICP_ITERS = 30
+P28_CG_ITERS = 400                  # P14's, max(400, 3 * 128 poses)
+# cls-ssg train step launches a rank (P11's): SA1, SA2 FPS and grouping,
+# kernel 12's backward at SA2
+P28_STEP = {"fps_pallas_batched": 2, "ball_group": 2, "scatter_add_rows": 1}
+
+
+def p28_rank(job):
+    """One P28 world's paths in one of its ranks (spawned by
+    `parallel.launch.run_world`, which imports this file afresh without
+    running `main`). Each path in job["tasks"] runs with every launch
+    counter set to 0 just before it and read just after, must launch
+    exactly its kernels on this rank, and has every launch it recorded
+    held against the kernel's plain version here (K1 and kernel 11 equal,
+    kernel 12's idx and rows equal, kernel 14 equal, K2-K4 at
+    `check_path_kernels`' bounds). Returns rank 0's results, with the
+    launch counts summed over the ranks."""
+    import torch
+    import torch.distributed as dist
+    from pctpu_torch import parallel as P
+    from pctpu_torch.core import se3
+    from pctpu_torch.core.cloud import PointCloud
+    from pctpu_torch.features import pallas_fpfh
+    from pctpu_torch.nn import augment, fit, config as nncfg, train as T
+    from pctpu_torch.ops import (ball_query, gather, pallas_ballgroup,
+                                 pallas_fps, pallas_gather, pallas_icp_mega,
+                                 pallas_nn)
+    from pctpu_torch.parallel import mesh as M
+    from pctpu_torch.register import pipeline
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mods = dict(pallas_nn=pallas_nn, pallas_fpfh=pallas_fpfh,
+                pallas_icp_mega=pallas_icp_mega)
+    counted = {"nn1": pallas_nn.nn1, "spfh": pallas_fpfh.spfh,
+               "wsum": pallas_fpfh.wsum,
+               "icp_mega_batch": pallas_icp_mega.icp_mega_batch,
+               "fps_pallas_batched": pallas_fps.fps_pallas_batched,
+               "ball_group": pallas_ballgroup.ball_group,
+               "scatter_add_rows": pallas_gather.scatter_add_rows_pallas}
+    mesh = P.make_mesh((("data", -1),))
+    world = dist.get_world_size()
+    out = {"world": world, "backend": dist.get_backend(), "launches": {},
+           "ms": {}}
+
+    def t(x):
+        return torch.as_tensor(np.ascontiguousarray(x)).to(dev)
+
+    def run(name, fn, expect):
+        for k in counted.values():
+            k.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        out["ms"][name] = (time.perf_counter() - t0) * 1e3
+        got = {k: f.launches for k, f in counted.items()}
+        need(got == {k: expect.get(k, 0) for k in counted}, "P28", name,
+             "launches on rank", dist.get_rank(), got, expect)
+        total = M.all_reduce(torch.tensor(list(got.values()), device=dev))
+        out["launches"][name] = {k: int(v) for k, v in zip(got,
+                                                             total.tolist())
+                                 if v}
+        return res
+
+    def k1_equal(calls):
+        """K1 equal to its plain version on a loop's first, middle and
+        last launch (each of 30 is a full-scan plain pass)."""
+        pick = sorted({0, len(calls) // 2, len(calls) - 1})
+        for i in pick:
+            check_nn1(mods, calls[i], torch, timed=False)
+        return len(pick)
+
+    tasks = job["tasks"]
+    if "dp_train" in tasks:
+        d = job["dp"]
+        preset = nncfg.MODELNET40_CLS_SSG
+        model = T.build_model(preset, device=dev)
+        model.load_state_dict({k: torch.from_numpy(v)
+                               for k, v in d["state"].items()})
+        state = T.TrainState(model, T.make_optimizer(preset).init(
+            list(model.parameters())), 0)
+        step = T.make_data_parallel_train_step(model, preset, mesh,
+                                               device=dev)
+        pc, lab = t(d["pc"]), t(d["labels"])
+
+        def one_step():
+            x = augment.augment_batch(
+                fit.step_generator(d["seed"], state.step, 0, dev), pc)
+            return step(state, x, lab, fit.step_generator(
+                d["seed"], state.step, 1, dev))
+        m0 = one_step()                     # the step held against P11's
+        first = dict(metrics={k: float(v) for k, v in m0.items()},
+                     grads=[(mu / 0.1).cpu() for mu in state.opt_state.mu],
+                     state={k: v.detach().cpu().clone()
+                            for k, v in model.state_dict().items()})
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+
+        def timed():
+            ev[0].record()
+            res = [one_step() for _ in range(TRAIN_STEPS)]
+            ev[1].record()
+            return res
+        with Recorder(pallas_fps, "_launch_fps") as rf, \
+                Recorder(pallas_ballgroup, "_launch_ball_group") as rg, \
+                Recorder(pallas_gather, "_launch_scatter_add_rows") as rs:
+            ms = run("dp_train", timed, {k: v * TRAIN_STEPS
+                                         for k, v in P28_STEP.items()})
+        with torch.no_grad():
+            check_fps(pallas_fps, rf.calls, torch)
+            bg_err, _, _ = check_ball_group(pallas_ballgroup, ball_query,
+                                            gather, rg.calls, torch)
+            for a in rs.calls:
+                need(torch.equal(pallas_gather._launch_scatter_add_rows(*a),
+                                 pallas_gather.scatter_add_rows_plain(*a)),
+                     "P28 kernel 14 vs plain", tuple(a[0].shape))
+        out["dp"] = dict(first=first, losses=[float(m["loss"]) for m in
+                                              [m0] + ms],
+                         step_ms=ev[0].elapsed_time(ev[1]) / TRAIN_STEPS,
+                         checked=dict(fps=len(rf.calls), ball_group=len(
+                             rg.calls), scatter=len(rs.calls)),
+                         ball_group_err=bg_err,
+                         names=[n for n, _ in model.named_parameters()])
+        del model, state, step
+        torch.cuda.empty_cache()
+
+    if "sweeps" in tasks:
+        f = job["pairs"]
+        mask = t(np.ones(f["src"].shape[:2], bool))
+        src, dst = PointCloud(t(f["src"]), mask), PointCloud(t(f["dst"]), mask)
+        sweep = P.make_full_pipeline_sweep(mesh, device=dev)
+        sweep(src, dst)                                     # warm-up
+        with recording_k1_k4(pallas_nn, pallas_fpfh, pallas_icp_mega) as rec:
+            reg = run("full_sweep", lambda: sweep(src, dst),
+                      {"nn1": 1, "spfh": 2, "wsum": 2, "icp_mega_batch": 2})
+        out["full"] = dict(T=reg.T, checked=check_path_kernels(mods, rec,
+                                                               torch))
+        moved = se3.apply_transform(reg.T, src.points)
+        icp_sweep = P.make_pair_sweep(mesh, iters=P28_ICP_ITERS, device=dev)
+        with Recorder(pallas_nn, "nn1") as r1:
+            Ts = run("pair_sweep", lambda: icp_sweep(moved, mask, dst.points,
+                                                     mask),
+                     {"nn1": P28_ICP_ITERS})
+        out["pair"] = dict(T=Ts, checked=k1_equal(r1.calls))
+
+    if "point_icp" in tasks:
+        c = job["icp"]
+        s_, d_ = t(c["src"]), t(c["dst"])
+        m_ = t(np.ones(c["src"].shape[0], bool))
+        f = P.make_point_sharded_icp(mesh, point_axis="data",
+                                     iters=P28_ICP_ITERS, device=dev)
+        f(s_, m_, d_, m_)                                   # warm-up
+        with Recorder(pallas_nn, "nn1") as r1:
+            T_ = run("point_icp", lambda: f(s_, m_, d_, m_),
+                     {"nn1": P28_ICP_ITERS})
+        out["icp"] = dict(T=T_, checked=k1_equal(r1.calls))
+
+    if "halo" in tasks:
+        h = job["halo"]
+        f = P.make_halo_nearest(mesh, h["width"], point_axis="data",
+                                device=dev)
+        hin = [t(h[k]) for k in ("src", "src_mask", "dst", "dst_mask")]
+        f(*hin)                                             # warm-up
+        with Recorder(pallas_nn, "nn1") as r1:
+            d2, idx = run("halo", lambda: f(*hin), {"nn1": 1})
+        out["halo"] = dict(d2=d2, idx=idx, checked=k1_equal(r1.calls))
+
+    if "posegraph" in tasks:
+        g = job["pg"]
+        args = [t(g[k]) for k in ("poses", "ei", "ej", "Tm_inv", "w")]
+        dense = P.make_sharded_pose_graph_step(mesh, device=dev)
+        sparse = P.make_sharded_pose_graph_step_sparse(
+            mesh, cg_iters=P28_CG_ITERS, device=dev)
+        dense(*args)          # warm-up: torch.func, cuSOLVER, the staging
+        out["pg"] = dict(dense=run("posegraph_dense", lambda: dense(*args),
+                                   {}),
+                         sparse=run("posegraph_sparse", lambda: sparse(*args),
+                                    {}))
+    return out
+
+
+def distribution_phase(paths, rows, d, dev, pm, torch):
+    """P28: the distributed paths through `torch.distributed`, on the card.
+    A gloo world of P28_WORLD ranks sharing the card (NCCL refuses two
+    ranks on one card; gloo's transfers of CUDA tensors go through host
+    memory, `parallel/mesh.py`), and an NCCL world of one rank:
+
+    - data-parallel `cls-ssg` training (`make_data_parallel_train_step`)
+      at B 32 x 4,096 x 6 on P11's clouds and recipe, 1 + 5 steps, in
+      both worlds: the first step against the one-process `make_train_step`
+      on all 32 at `tests/torch_ranks.py:dp_mismatches`' bounds (those of
+      `tests/test_torch_dp_train.py`, at the card's float32 floor: the
+      gradients 1e-2 of a norm, P10-P11's card-vs-CPU bound, the loss 1e-5
+      relative), finite losses;
+      kernels 11, 12, 14;
+    - the full-pipeline sweep on P1's 16 pairs (gloo): every pair within
+      the bound and within 1e-3 (the dry run's bound) of the one-process
+      `register_pairs` with the same draws (a generator seeded 0 over the
+      whole batch): at 8 pairs a rank the card's batched passes round
+      otherwise than at 16; K1-K4;
+    - the pair sweep (30 ICP iterations, K1) on those pairs with the
+      source moved by the sweep's poses: the composed poses within the
+      bound, within 1e-4 of the one-process `batched_icp`;
+    - the point-sharded ICP on P3's pair, 30 iterations, in both worlds:
+      within 1e-4 of the one-process `icp_fixed_iters`, RTE and RRE within
+      the bound; K1;
+    - the halo 1-NN of P3's perturbed scan against the scan, both in 2
+      x-slabs, the halo width the least that reaches every query's true
+      neighbour: d2 and index equal to K1 over the whole scan;
+    - the edge-sharded dense and sparse pose-graph steps on P14's graph
+      (edges padded to the world size with weight 0 at (0, 0)), within
+      1e-3 of `optimize_pose_graph` / `_sparse` at one iteration (the
+      dry run's bound);
+    - `entry.dryrun_multichip(2)` over gloo on the card.
+    Every figure prints before a failed gate fails the phase. Returns the
+    metrics."""
+    from pctpu_torch.entry import dryrun_multichip
+    from pctpu_torch.parallel.launch import run_world
+    import torch_ranks
+    se3, pipeline, pair_sweep, icp, posegraph, pallas_nn, T, fit, augment = (
+        pm[k] for k in ("se3", "pipeline", "pair_sweep", "icp", "posegraph",
+                        "pallas_nn", "T", "fit", "augment"))
+    PointCloud, halo, preset = pm["PointCloud"], pm["halo"], pm["preset"]
+    out, fails = {}, []
+
+    def check(ok, *what):
+        """A P28 gate: a failure is reported at the end of the phase."""
+        if not ok:
+            fails.append(what)
+            print("   P28 gate failed:", what)
+
+    # the one-process references and the inputs
+    model, state = T.create_train_state(
+        preset, torch.Generator().manual_seed(d["seed"]), d["pc"], device=dev)
+    dp = dict(state={k: v.cpu().numpy().copy() for k, v in
+                     model.state_dict().items()},
+              pc=d["pc"].cpu().numpy(), labels=d["labels"].cpu().numpy(),
+              seed=d["seed"])
+    step = T.make_train_step(model, preset, device=dev)
+    x0 = augment.augment_batch(fit.step_generator(d["seed"], 0, 0, dev),
+                               d["pc"])
+    m0 = step(state, x0, d["labels"], fit.step_generator(d["seed"], 0, 1,
+                                                          dev))
+    one = dict(metrics={k: float(v) for k, v in m0.items()},
+               grads=[(mu / 0.1).cpu() for mu in state.opt_state.mu],
+               state={k: v.detach().cpu().clone()
+                      for k, v in model.state_dict().items()})
+    names = [n for n, _ in model.named_parameters()]
+    del model, state, step
+    torch.cuda.empty_cache()
+
+    icp_job = dict(src=d["w4_src"], dst=d["w4_dst"])
+    q_p, q_m = halo.partition_by_axis(d["w4_dst"], P28_WORLD)
+    db_p, db_m = halo.partition_by_axis(d["w4_src"], P28_WORLD)
+    qd, dbd, dbm = (torch.from_numpy(x).to(dev) for x in (q_p, db_p, db_m))
+    ref_d2, ref_idx = pallas_nn.nearest_batch(qd[None], dbd[None], dbm[None])
+    ref_d2, ref_idx = ref_d2[0], ref_idx[0].long()
+    s = q_p.shape[0] // P28_WORLD
+    slab = torch.arange(q_p.shape[0], device=dev) // s
+    reach = torch.maximum(slab * s - ref_idx, ref_idx - (slab + 1) * s + 1)
+    width = max(int(reach.max()), 1)
+    need(width <= s, "P28 halo width", width, s)
+    halo_job = dict(src=q_p, src_mask=q_m, dst=db_p, dst_mask=db_m,
+                    width=width)
+    poses14, (ei, ej, Tm) = d["pg"]
+    pad = (-len(ei)) % P28_WORLD
+    pg = dict(poses=poses14.astype(np.float32),
+              ei=np.concatenate([ei, np.zeros(pad, ei.dtype)]).astype(
+                  np.int64),
+              ej=np.concatenate([ej, np.zeros(pad, ej.dtype)]).astype(
+                  np.int64),
+              Tm=np.concatenate([Tm, np.tile(np.eye(4, dtype=np.float32),
+                                             (pad, 1, 1))]),
+              w=np.concatenate([np.ones(len(ei), np.float32),
+                                np.zeros(pad, np.float32)]))
+    pg["Tm_inv"] = se3.invert_transform(torch.from_numpy(pg["Tm"])).numpy()
+
+    # the two worlds
+    worlds = {}
+    t0 = time.perf_counter()
+    worlds["gloo"] = run_world(p28_rank, P28_WORLD, "gloo", dev, dict(
+        tasks=("dp_train", "sweeps", "point_icp", "halo", "posegraph"),
+        dp=dp, pairs=dict(src=d["src"], dst=d["dst"]), icp=icp_job,
+        halo=halo_job, pg=pg), timeout=600)
+    out["gloo_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    worlds["nccl"] = run_world(p28_rank, 1, "nccl", dev, dict(
+        tasks=("dp_train", "point_icp"), dp=dp, icp=icp_job), timeout=600)
+    out["nccl_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["dryrun"] = dryrun_multichip(P28_WORLD, backend="gloo", device=dev)
+    out["dryrun_s"] = time.perf_counter() - t0
+    for wname, w in worlds.items():
+        for task, counts in w["launches"].items():
+            paths.launches[f"P28 {task} ({wname} x{w['world']})"] = counts
+
+    # data-parallel training against the one-process step
+    for wname, w in worlds.items():
+        bad = torch_ranks.dp_mismatches(w["dp"]["first"], one, names,
+                                        grad_tol=1e-2, loss_rtol=1e-5)
+        check(bad == [] and w["dp"]["names"] == names, "dp_train vs "
+              "make_train_step", wname, bad)
+        check(all(np.isfinite(w["dp"]["losses"])), "dp losses", wname)
+        out["dp_" + wname] = dict(
+            step_ms=w["dp"]["step_ms"], losses=w["dp"]["losses"],
+            loss_vs_one=abs(w["dp"]["first"]["metrics"]["loss"]
+                            - one["metrics"]["loss"]),
+            grad_err=grad_err(w["dp"]["first"]["grads"], one["grads"]),
+            checked=w["dp"]["checked"], launches=w["launches"]["dp_train"])
+        print(f"P28 dp_train cls-ssg {d['pc'].shape[0]} x "
+              f"{d['pc'].shape[1]} ({wname}, {w['world']} rank(s)): "
+              f"{w['dp']['step_ms']:.2f} ms per step = "
+              f"{d['pc'].shape[0] / w['dp']['step_ms'] * 1e3:.1f} clouds/s;"
+              f" first step vs make_train_step: loss "
+              f"{out['dp_' + wname]['loss_vs_one']:.1e}, grads "
+              f"{out['dp_' + wname]['grad_err']:.1e} of a norm; losses "
+              + ", ".join(f"{v:.4f}" for v in w["dp"]["losses"]))
+
+    # the sweeps against the one-process runs on all 16 pairs
+    g = worlds["gloo"]
+    mask = torch.ones(d["src"].shape[:2], dtype=torch.bool, device=dev)
+    src = PointCloud(torch.from_numpy(d["src"]).to(dev), mask)
+    dst = PointCloud(torch.from_numpy(d["dst"]).to(dev), mask)
+    ref = pipeline.register_pairs(src, dst, generator=torch.Generator(
+        device=dev).manual_seed(0), device=dev)
+    T_full = g["full"]["T"].to(dev)
+    rte, rre = gate("P28 full_sweep", T_full, d["gts"], se3, torch)
+    dfull = float((T_full - ref.T).abs().max())
+    check(dfull <= 1e-3, "full_sweep vs register_pairs", dfull)
+    moved = se3.apply_transform(T_full, src.points)
+    ref_pair = pair_sweep.batched_icp(moved, mask, dst.points, mask,
+                                      iters=P28_ICP_ITERS, device=dev)
+    T_pair = g["pair"]["T"].to(dev)
+    prte, prre = gate("P28 pair_sweep", T_pair @ T_full, d["gts"], se3,
+                      torch)
+    dpair = float((T_pair - ref_pair).abs().max())
+    check(dpair <= 1e-4, "pair_sweep vs batched_icp", dpair)
+    out["sweeps"] = dict(full_ms=g["ms"]["full_sweep"],
+                         pair_ms=g["ms"]["pair_sweep"], full_rte=rte,
+                         full_rre=rre, full_vs_one=dfull, pair_rte=prte,
+                         pair_rre=prre, pair_vs_one=dpair)
+    print(f"P28 sweeps ({P28_WORLD} gloo ranks, {d['src'].shape[0]} x "
+          f"{d['src'].shape[1]}): full pipeline {g['ms']['full_sweep']:.1f}"
+          f" ms, max RTE {rte:.4f} m, RRE {rre:.4f} deg, vs register_pairs "
+          f"{dfull:.1e}; ICP sweep {g['ms']['pair_sweep']:.1f} ms, max RTE "
+          f"{prte:.4f} m, RRE {prre:.4f} deg, vs batched_icp {dpair:.1e}")
+    print(kernels_line("P28 full sweep", g["full"]["checked"]))
+
+    # the point-sharded ICP
+    s4, d4 = (torch.from_numpy(x).to(dev) for x in (d["w4_src"],
+                                                    d["w4_dst"]))
+    m4 = torch.ones(s4.shape[0], dtype=torch.bool, device=dev)
+    T_one = icp.icp_fixed_iters(s4, m4, d4, m4, iters=P28_ICP_ITERS,
+                                device=dev)
+    for wname, w in worlds.items():
+        T_ = w["icp"]["T"].to(dev)
+        dT = float((T_ - T_one).abs().max())
+        irte, irre = gate("P28 point_icp", T_, d["w4_gt"], se3, torch)
+        check(dT <= 1e-4, "point_icp vs icp_fixed_iters", wname, dT)
+        out["point_icp_" + wname] = dict(ms=w["ms"]["point_icp"], dT=dT,
+                                         rte=irte, rre=irre)
+        print(f"P28 point-sharded ICP ({wname}, {w['world']} rank(s), "
+              f"{s4.shape[0]} pts, {P28_ICP_ITERS} iters): "
+              f"{w['ms']['point_icp']:.1f} ms, RTE {irte:.5f} m, RRE "
+              f"{irre:.5f} deg; max |dT| vs icp_fixed_iters {dT:.1e}")
+
+    # the halo 1-NN
+    hd2, hidx = g["halo"]["d2"].to(dev), g["halo"]["idx"].to(dev).long()
+    check(torch.equal(hd2, ref_d2) and torch.equal(hidx, ref_idx),
+          "halo vs K1 over the whole scan",
+          int((hd2 != ref_d2).sum()), int((hidx != ref_idx).sum()))
+    out["halo"] = dict(width=width, slab=s, ms=g["ms"]["halo"])
+    print(f"P28 halo 1-NN ({P28_WORLD} slabs of {s:,} points, halo width "
+          f"{width}): {g['ms']['halo']:.1f} ms; d2 and index = K1 over the "
+          "whole scan")
+
+    # the pose-graph steps
+    ref_dense = posegraph.optimize_pose_graph(
+        pg["poses"], pg["ei"], pg["ej"], pg["Tm"], weights=pg["w"], iters=1,
+        device=dev)
+    ref_sparse = posegraph.optimize_pose_graph_sparse(
+        pg["poses"], pg["ei"], pg["ej"], pg["Tm"], weights=pg["w"], iters=1,
+        cg_iters=P28_CG_ITERS, device=dev)
+    dd = float((g["pg"]["dense"].to(dev) - ref_dense.poses).abs().max())
+    ds = float((g["pg"]["sparse"].to(dev) - ref_sparse.poses).abs().max())
+    check(dd <= 1e-3 and ds <= 1e-3, "sharded pose graph", dd, ds)
+    out["posegraph"] = dict(poses=len(pg["poses"]), edges=len(pg["ei"]),
+                            dense_dP=dd, sparse_dP=ds,
+                            dense_ms=g["ms"]["posegraph_dense"],
+                            sparse_ms=g["ms"]["posegraph_sparse"])
+    print(f"P28 sharded pose-graph steps (P14's {len(pg['poses'])} poses, "
+          f"{len(pg['ei'])} edges): dense {g['ms']['posegraph_dense']:.1f}"
+          f" ms, max |dP| {dd:.1e}; sparse {g['ms']['posegraph_sparse']:.1f}"
+          f" ms, max |dP| {ds:.1e}")
+    k1_checked = sum(w[k]["checked"] for w in worlds.values()
+                     for k in ("pair", "icp", "halo") if k in w)
+    print(f"   P28 kernels vs plain in the ranks: K1 equal on {k1_checked} "
+          "launches (each loop's first, middle and last, the halo's one); "
+          "kernels 11, 12, 14 on every dp_train launch equal ("
+          + "; ".join(f"{n} {w['dp']['checked']}" for n, w in worlds.items())
+          + f"); worlds: gloo {out['gloo_s']:.1f} s, nccl "
+          f"{out['nccl_s']:.1f} s, dryrun_multichip({P28_WORLD}) "
+          f"{out['dryrun_s']:.1f} s")
+    for name in ("nn1", "spfh", "wsum", "icp_mega_batch"):
+        if name in g["full"]["checked"]:
+            rows[name]["max_abs_err"] = max(
+                rows[name]["max_abs_err"],
+                g["full"]["checked"][name]["max_abs_err"])
+    rows["ball_group"]["max_abs_err"] = max(
+        rows["ball_group"]["max_abs_err"],
+        *(w["dp"]["ball_group_err"] for w in worlds.values()))
+    need(not fails, "P28", fails)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -2296,7 +2726,7 @@ def main(argv=None):
                                      pallas_banded, pallas_fps,
                                      pallas_gather, pallas_icp_mega,
                                      pallas_nn, voxel)
-        from pctpu_torch.parallel import pair_sweep, posegraph
+        from pctpu_torch.parallel import halo, pair_sweep, posegraph
         from pctpu_torch.pipelines import odometry, registration_driver
         from pctpu_torch import cluster
         from pctpu_torch.cluster.dbscan import dbscan
@@ -3914,6 +4344,18 @@ def main(argv=None):
         rows["nn1"]["max_abs_err"],
         *(metrics[p]["kernels_vs_plain"]["nn1"]["max_abs_err"]
           for p in ("grid", "host")))
+    torch.cuda.empty_cache()
+
+    mark("P28 distribution (gloo x2, nccl x1)")
+    metrics["distribution"] = distribution_phase(
+        paths, rows, dict(seed=args.seed, pc=pc_tr, labels=lab_tr,
+                          src=src_np, dst=dst_np, gts=gts, w4_src=full,
+                          w4_dst=w4_dst, w4_gt=w4_gt,
+                          pg=(kf14, out14["edges"])), dev,
+        dict(se3=se3, pipeline=pipeline, pair_sweep=pair_sweep, icp=icp,
+             posegraph=posegraph, pallas_nn=pallas_nn, T=T, fit=fit,
+             augment=augment, PointCloud=PointCloud, halo=halo,
+             preset=nncfg.MODELNET40_CLS_SSG), torch)
 
     # ---- kernels line, card, result --------------------------------------
     mark(None)

@@ -36,6 +36,12 @@ are recomputed in the backward pass (`torch.utils.checkpoint`, as the
 reference's `nn.remat`); the BN layers move their running statistics
 only in the forward pass, not again in the recomputation.
 
+Global batch statistics: under `global_batch_stats(model, group)` the BN
+layers (`RuntimeBN`, `FoldedDenseBNRelu`) take their batch moments over
+the whole batch of a `torch.distributed` group, each rank holding an equal
+block of it, through the differentiable all-reduce of
+`parallel.mesh.AllReduceSum` (the data-parallel train step).
+
 Dense layers keep flax's layout in the converter only: a torch
 `nn.Linear` holds the transposed kernel. Initialisation mirrors flax's
 (lecun_normal kernels, zero biases, BN scale 1 / bias 0 / mean 0 / var 1)
@@ -47,6 +53,7 @@ import contextlib
 from typing import Optional, Sequence
 
 import torch
+import torch.distributed as dist
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
@@ -57,6 +64,7 @@ from pctpu_torch.ops.gather import gather_points, group_points
 from pctpu_torch.ops.interpolate import (interpolation_weights,
                                          three_interpolate, three_nn)
 from pctpu_torch.ops.morton import morton_codes
+from pctpu_torch.parallel.mesh import AllReduceSum
 
 F32 = torch.float32
 # flax's truncated-normal correction: the std of a unit normal cut at +-2
@@ -136,6 +144,16 @@ def _dense_apply(lin: nn.Linear, x: torch.Tensor,
     return y if lin.bias is None else y + lin.bias.to(dtype)
 
 
+def dropout_keep(shape, rate: float, generator: Optional[torch.Generator],
+                 device) -> torch.Tensor:
+    """The keep-mask of `dropout`: a uniform draw from `generator` below
+    1 - rate."""
+    if generator is None:
+        raise ValueError("dropout draws from an explicit generator: pass "
+                         "generator= or dropout_mask=")
+    return torch.rand(shape, generator=generator, device=device) < 1.0 - rate
+
+
 def dropout(x: torch.Tensor, rate: float,
             generator: Optional[torch.Generator] = None,
             keep_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -145,11 +163,7 @@ def dropout(x: torch.Tensor, rate: float,
     in for the draw."""
     keep = 1.0 - rate
     if keep_mask is None:
-        if generator is None:
-            raise ValueError("dropout draws from an explicit generator: "
-                             "pass generator= or dropout_mask=")
-        keep_mask = torch.rand(x.shape, generator=generator,
-                               device=x.device) < keep
+        keep_mask = dropout_keep(x.shape, rate, generator, x.device)
     return torch.where(keep_mask, x / keep, torch.zeros((), dtype=x.dtype,
                                                         device=x.device))
 
@@ -168,13 +182,41 @@ def _stats_frozen(module: nn.Module):
             m.update_stats = True
 
 
+def _global_mean(rows_sum: torch.Tensor, count: int, group):
+    """(sum over the group's ranks, rows over them) of a per-rank [C] sum
+    and row count, both through the differentiable all-reduce."""
+    both = AllReduceSum.apply(torch.cat([
+        rows_sum, torch.full((1,), float(count), dtype=rows_sum.dtype,
+                             device=rows_sum.device)]), group)
+    return both[:-1], both[-1]
+
+
+@contextlib.contextmanager
+def global_batch_stats(module: nn.Module, group):
+    """Within: the BN layers of `module` take their batch statistics over
+    the whole batch of the `torch.distributed` group `group`."""
+    layers = [m for m in module.modules()
+              if isinstance(m, (RuntimeBN, FoldedDenseBNRelu))]
+    old = [m.group for m in layers]
+    for m in layers:
+        m.group = group
+    try:
+        yield
+    finally:
+        for m, g in zip(layers, old):
+            m.group = g
+
+
 class RuntimeBN(nn.Module):
     """BatchNorm over the last axis with torch-convention runtime momentum:
-    running <- (1 - momentum) * running + momentum * batch."""
+    running <- (1 - momentum) * running + momentum * batch. With `group`
+    set to a `torch.distributed` process group (`global_batch_stats`) the
+    batch statistics are the group's whole batch's: the per-channel sums
+    and the centred sums of squares are all-reduced."""
 
     def __init__(self, channels: int, epsilon: float = 1e-5):
         super().__init__()
-        self.epsilon = epsilon
+        self.epsilon, self.group = epsilon, None
         self.update_stats = True
         self.scale = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
@@ -184,8 +226,15 @@ class RuntimeBN(nn.Module):
     def forward(self, x: torch.Tensor, momentum: float = 0.1) -> torch.Tensor:
         if self.training:
             dims = tuple(range(x.dim() - 1))
-            mean = x.mean(dim=dims)
-            var = x.var(dim=dims, unbiased=False)
+            if self.group is None:
+                mean = x.mean(dim=dims)
+                var = x.var(dim=dims, unbiased=False)
+            else:
+                total, n = _global_mean(x.sum(dim=dims),
+                                        x.numel() // x.shape[-1], self.group)
+                mean = total / n
+                var = AllReduceSum.apply(((x - mean) ** 2).sum(dim=dims),
+                                         self.group) / n
             if self.update_stats:
                 with torch.no_grad():
                     self.mean.copy_((1.0 - momentum) * self.mean
@@ -210,13 +259,18 @@ class FoldedDenseBNRelu(nn.Module):
     layer is relu(x @ (W k s) + (beta - mu_y k s)) with k = rsqrt(var_y +
     eps), in `dtype`. The [Cin, N] x [N, Cin] moment product is a plain
     matrix product, as the reference leaves it to XLA. Opt-in and off by
-    default (`SharedMLP(fold_bn=True)`), as in the reference."""
+    default (`SharedMLP(fold_bn=True)`), as in the reference.
+
+    With `group` set (see `RuntimeBN`) the input moments are the group's
+    whole batch's, each rank holding an equal block of its rows; the
+    strided rows are those the stride picks from the whole batch."""
 
     def __init__(self, cin: int, features: int, generator: torch.Generator,
                  epsilon: float = 1e-5, dtype: torch.dtype = F32,
                  stat_stride: int = 1):
         super().__init__()
         self.epsilon, self.dtype, self.stat_stride = epsilon, dtype, stat_stride
+        self.group = None
         self.update_stats = True
         self.weight = nn.Parameter(_lecun_normal(cin, features, generator))
         self.scale = nn.Parameter(torch.ones(features))
@@ -228,13 +282,23 @@ class FoldedDenseBNRelu(nn.Module):
         kernel = self.weight.t()                           # [cin, cout]
         if self.training:
             rows = x.reshape(-1, x.shape[-1])
-            if (self.stat_stride > 1
-                    and rows.shape[0] >= 64 * self.stat_stride):
-                rows = rows[::self.stat_stride]
+            group = self.group
+            ranks, me = ((dist.get_world_size(group), dist.get_rank(group))
+                         if group is not None else (1, 0))
+            stride = self.stat_stride
+            if stride > 1 and ranks * rows.shape[0] >= 64 * stride:
+                # the rows at multiples of the stride in the whole batch
+                rows = rows[(-me * rows.shape[0]) % stride::stride]
             rows = rows.float()
-            mu_x = rows.mean(dim=0)
-            cen = rows - mu_x
-            cov = (cen.t() @ cen) / float(rows.shape[0])
+            if group is None:
+                mu_x = rows.mean(dim=0)
+                cen = rows - mu_x
+                cov = (cen.t() @ cen) / float(rows.shape[0])
+            else:
+                total, n = _global_mean(rows.sum(dim=0), rows.shape[0], group)
+                mu_x = total / n
+                cen = rows - mu_x
+                cov = AllReduceSum.apply(cen.t() @ cen, group) / n
             mu_y = mu_x @ kernel
             var_y = torch.clamp_min(torch.sum(kernel * (cov @ kernel),
                                               dim=0), 0.0)
@@ -482,6 +546,11 @@ class _PointNet2Cls(nn.Module):
                                     _dense(256, num_classes, True, gen)])
         self.bn = nn.ModuleList([RuntimeBN(512), RuntimeBN(256)])
 
+    @staticmethod
+    def dropout_shape(pc_shape) -> tuple:
+        """The head's dropout mask shape for a batch of `pc_shape`."""
+        return (pc_shape[0], 256)
+
     def forward(self, pc: torch.Tensor, bn_momentum: float = 0.1,
                 generator: Optional[torch.Generator] = None,
                 dropout_mask: Optional[torch.Tensor] = None):
@@ -552,6 +621,11 @@ class _PointNet2SemSeg(nn.Module):
             _dense(self.FP_MLPS[0][-1], 128, False, gen),
             _dense(128, num_classes, True, gen)])
         self.bn = nn.ModuleList([RuntimeBN(128)])
+
+    @staticmethod
+    def dropout_shape(pc_shape) -> tuple:
+        """The head's dropout mask shape for a batch of `pc_shape`."""
+        return (pc_shape[0], pc_shape[1], 128)
 
     def forward(self, pc: torch.Tensor, bn_momentum: float = 0.1,
                 generator: Optional[torch.Generator] = None,

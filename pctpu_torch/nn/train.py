@@ -10,6 +10,11 @@ and eval steps.
 Both schedules are computed in float32, as the reference's jnp arithmetic
 is. The step updates the state in place (parameters, BN statistics,
 moments, step) where the reference returns a new one.
+
+`make_data_parallel_train_step` is the reference's data-parallel step
+(`jax.jit` with the batch sharded and the parameters replicated): one
+process per rank, the batch split over a mesh axis, and the result the
+one-process step's on the whole batch.
 """
 from __future__ import annotations
 
@@ -20,8 +25,10 @@ from typing import List, Optional
 import torch
 
 from pctpu_torch.device import DeviceLike, resolve_device
-from pctpu_torch.models.pointnet2 import MODEL_REGISTRY
+from pctpu_torch.models.pointnet2 import (DROPOUT_RATE, MODEL_REGISTRY,
+                                          dropout_keep, global_batch_stats)
 from pctpu_torch.nn.config import TrainConfig
+from pctpu_torch.parallel.mesh import all_reduce, broadcast, shard_batch
 
 F32 = torch.float32
 
@@ -272,3 +279,71 @@ def make_eval_step(model: torch.nn.Module, device: DeviceLike = None):
         return {"loss": cross_entropy(logits, labels),
                 "acc": accuracy(logits, labels), "logits": logits}
     return eval_step
+
+
+def make_data_parallel_train_step(model: torch.nn.Module, cfg: TrainConfig,
+                                  mesh, data_axis: str = "data",
+                                  device: DeviceLike = None):
+    """train_step(state, pc, labels, generator, dropout_mask=None) ->
+    {"loss", "acc", "lr"}: `make_train_step`'s step on the whole batch,
+    computed by the ranks of `mesh`'s `data_axis` together. Call it on
+    every rank with the same arguments: pc and labels are the whole batch
+    (B must divide by the axis size), as the reference's signature takes
+    the global batch, and each rank slices its contiguous block of rows.
+
+    So that the step is the one-process step on the whole batch: the BN
+    layers take their batch statistics over the whole batch
+    (`models.pointnet2.global_batch_stats`); each rank's loss is its sum
+    over the whole batch's count, and the gradients are summed over the
+    ranks, giving the gradient of the whole batch's mean; the dropout mask
+    is drawn for the whole batch from `generator` (as the one-process
+    step draws it) or given whole, and each rank takes its rows; the loss
+    and accuracy are the whole batch's. Rank 0's parameters and BN
+    statistics are copied to every rank when the step is made. Runs on
+    CUDA unless "cpu" is asked for."""
+    dev = resolve_device(device)
+    model_dev = next(model.parameters()).device
+    if model_dev.type != dev.type:
+        raise ValueError(f"the model is on {model_dev}, the step on {dev}")
+    tx = make_optimizer(cfg)
+    params = list(model.parameters())
+    group = mesh.group(data_axis)
+    shard = shard_batch(mesh, data_axis)
+    with torch.no_grad():
+        for t in [*params, *model.buffers()]:
+            t.copy_(broadcast(t, group))
+
+    def train_step(state: TrainState, pc, labels,
+                   generator: Optional[torch.Generator] = None,
+                   dropout_mask: Optional[torch.Tensor] = None):
+        if state.model is not model:
+            raise ValueError("train_step: the state holds another model")
+        pc = torch.as_tensor(pc, dtype=torch.float32, device=model_dev)
+        labels = torch.as_tensor(labels, device=model_dev)
+        if dropout_mask is None:
+            dropout_mask = dropout_keep(model.dropout_shape(pc.shape),
+                                        DROPOUT_RATE, generator, model_dev)
+        rows = shard.rows(pc.shape[0])
+        mask = torch.as_tensor(dropout_mask, device=model_dev)[rows]
+        lab = labels[rows]
+        count = float(labels.numel())
+        lr = lr_schedule(cfg, state.step)
+        model.train()
+        with global_batch_stats(model, group):
+            logits = model(pc[rows], bn_momentum=bn_momentum_schedule(
+                cfg, state.step), dropout_mask=mask)
+            logp = torch.log_softmax(logits, dim=-1)
+            nll = -torch.gather(logp, -1, lab.long()[..., None])[..., 0]
+            loss = nll.sum() / torch.tensor(count, device=model_dev)
+            grads = torch.autograd.grad(loss, params)
+        flat = all_reduce(torch.cat([g.reshape(-1) for g in grads]), group)
+        grads = list(torch.split(flat, [p.numel() for p in params]))
+        grads = [g.view_as(p) for g, p in zip(grads, params)]
+        tx.update(grads, state.opt_state, params)
+        state.step += 1
+        hits = (torch.argmax(logits.detach(), dim=-1) == lab).float().sum()
+        sums = all_reduce(torch.stack([loss.detach(), hits]), group)
+        return {"loss": sums[0],
+                "acc": sums[1] / torch.tensor(count, device=model_dev),
+                "lr": lr}
+    return train_step

@@ -13,8 +13,14 @@ keeps H as pose blocks (D [M,6,6] and one [6,6] block per edge), fixes the
 gauge by eliminating pose 0, and solves by block-Jacobi preconditioned CG
 with iterative refinement; `optimize_pose_graph_sparse_f64` runs that in
 float64. Every solve is `solve_ex` / `inv_ex`, which do not wait on the
-host to check their result. The edge-sharded steps of the reference need
-a mesh and are not ported here.
+host to check their result.
+
+The edge-sharded steps split the edge list over the ranks of a mesh:
+`make_sharded_pose_graph_step` sums each rank's dense H and b with one
+`all_reduce` each; `make_sharded_pose_graph_step_sparse` sums the pose
+blocks D and b once, then one [M,6] vector every CG iteration. The CG's
+host look at its convergence flag reads values that every rank computes
+from the same all-reduced sums, so all ranks leave the loop together.
 
 The solvers run on CUDA unless the caller passes `device="cpu"`.
 """
@@ -27,6 +33,7 @@ import torch
 
 from pctpu_torch.core import se3
 from pctpu_torch.device import DeviceLike, resolve_device
+from pctpu_torch.parallel.mesh import Mesh, all_reduce, shard_batch
 from pctpu_torch.register.icp import _so3_exp
 
 # CG: how often (in iterations) the host looks at the convergence flag;
@@ -304,3 +311,81 @@ def optimize_pose_graph_sparse_f64(poses, edges_i, edges_j, T_meas,
             weights).to(dev).double(), device=dev, **kw)
     return PoseGraphResult(res.poses.float(), res.final_cost.float(),
                            res.iters)
+
+
+def _edge_shard(mesh: Mesh, edge_axis: str, dev, poses, edges_i, edges_j,
+                T_meas_inv, weights):
+    """The poses (replicated) and this rank's contiguous block of the edge
+    arrays (E must divide by the axis size), as float32 on `dev`."""
+    shard = shard_batch(mesh, edge_axis)
+    poses = torch.as_tensor(poses).to(dev).float()
+    ei, ej, Tmi, w = (torch.as_tensor(shard.take(x)).to(dev)
+                      for x in (edges_i, edges_j, T_meas_inv, weights))
+    return poses, ei.long(), ej.long(), Tmi.float(), w.float()
+
+
+def make_sharded_pose_graph_step_sparse(mesh: Mesh, edge_axis: str = "data",
+                                        cg_iters: int = 100,
+                                        device: DeviceLike = None):
+    """Edge-sharded block-sparse Gauss-Newton step: step(poses, edges_i,
+    edges_j, T_meas_inv, weights) -> new poses [M,4,4]. Each rank builds
+    the pose blocks of its edges with damping 1e-6 / W, so the summed D
+    carries the one-rank damping; D and b are all-reduced once, and every
+    CG matvec adds D x / W to the rank's coupling blocks and all-reduces
+    the [M,6] result. Pad the edge list to a multiple of W with weight-0
+    edges at (0, 0). Every rank passes the whole edge list. Runs on CUDA
+    unless `device="cpu"` is asked for."""
+    dev = resolve_device(device)
+    w = mesh.shape[edge_axis]
+    group = mesh.group(edge_axis)
+    wt = torch.tensor(float(w), device=dev)   # a true division on the card
+
+    def step(poses, edges_i, edges_j, T_meas_inv, weights):
+        poses, ei, ej, Tmi, wts = _edge_shard(mesh, edge_axis, dev, poses,
+                                              edges_i, edges_j, T_meas_inv,
+                                              weights)
+        m = poses.shape[0]
+        r, Ji, Jj = _edge_terms(poses, ei, ej, Tmi, wts)
+        D, Bij, b = _pose_blocks(m, ei, ej, r, Ji, Jj, 1e-6 / w)
+        D, b = all_reduce(D, group), all_reduce(b, group)
+        Minv = torch.linalg.inv_ex(D)[0]
+
+        def matvec(x):
+            # D is replicated after the sum: each rank adds 1/W of D x, so
+            # the sum restores it; the coupling blocks are the rank's own
+            y = torch.einsum("mab,mb->ma", D, x) / wt
+            y = y.index_add(0, ei, torch.einsum("eab,eb->ea", Bij, x[ej]))
+            y = y.index_add(0, ej, torch.einsum("eba,eb->ea", Bij, x[ei]))
+            return all_reduce(y, group)
+
+        return _retract(poses, _pcg_refined(matvec, Minv, b, cg_iters,
+                                            refine=2))
+    return step
+
+
+def make_sharded_pose_graph_step(mesh: Mesh, edge_axis: str = "data",
+                                 device: DeviceLike = None):
+    """Edge-sharded dense Gauss-Newton step: step(poses, edges_i, edges_j,
+    T_meas_inv, weights) -> new poses [M,4,4]. Each rank assembles H and b
+    over its edges, both are all-reduced, and the 1e6 gauge prior on pose
+    0, the 1e-6 damping and the solve run replicated. Pad the edge list to
+    a multiple of W with weight-0 edges. Every rank passes the whole edge
+    list. Runs on CUDA unless `device="cpu"` is asked for."""
+    dev = resolve_device(device)
+    group = mesh.group(edge_axis)
+
+    def step(poses, edges_i, edges_j, T_meas_inv, weights):
+        poses, ei, ej, Tmi, wts = _edge_shard(mesh, edge_axis, dev, poses,
+                                              edges_i, edges_j, T_meas_inv,
+                                              weights)
+        m = poses.shape[0]
+        r, Ji, Jj = _edge_terms(poses, ei, ej, Tmi, wts)
+        H, b = _assemble(m, ei, ej, r, Ji, Jj)
+        H, b = all_reduce(H, group), all_reduce(b, group)
+        H = H + torch.diag(torch.cat([
+            torch.full((6,), 1e6, device=dev),
+            torch.zeros((6 * m - 6,), device=dev)]))
+        H = H + 1e-6 * torch.eye(6 * m, dtype=torch.float32, device=dev)
+        dx = torch.linalg.solve_ex(H, b)[0].reshape(m, 6)
+        return _retract(poses, dx)
+    return step

@@ -1635,3 +1635,33 @@ def test_grid_nearest_card_matches_cpu(gen, cuda):
         for a, b in zip(card, cpu):
             assert torch.equal(a.cpu(), b)
     assert not bool(pairs[0][0][2][-1])
+
+
+def test_dp_train_step_nccl_world_of_one_matches_train_step(cuda):
+    """The data-parallel `cls-ssg` step over an NCCL world of one rank on
+    the card (kernels 11, 12 and 14 in its forward and backward) equals
+    the one-process `make_train_step` on the same batch, at the bounds of
+    `tests/test_torch_dp_train.py` (`torch_ranks.dp_mismatches`) with the
+    card's float32 floor (gradients 1e-2 of a norm, the loss 1e-5
+    relative), for a first step with an injected keep-mask and one with
+    the generator's."""
+    import torch_ranks
+    from pctpu_torch.nn import train as T
+    from pctpu_torch.nn.config import TrainConfig
+    from pctpu_torch.parallel.launch import run_world
+    cfg = dict(model="cls-ssg", num_classes=10, num_points=512, batch_size=8)
+    model = T.build_model(TrainConfig(**cfg), device=cuda)
+    rng = np.random.default_rng(16)
+    pc = rng.normal(size=(8, 512, 6)).astype(np.float32)
+    pc[..., :3] /= np.abs(pc[..., :3]).max()
+    inp = dict(cfg=cfg, pc=pc, labels=rng.integers(0, 10, 8),
+               mask=rng.uniform(size=(8, 256)) < 0.5, seed=11, device="cuda",
+               state={k: v.cpu().numpy() for k, v in
+                      model.state_dict().items()})
+    world = run_world(torch_ranks.dp_train_checks, 1, "nccl", cuda, inp,
+                      timeout=300)
+    one = torch_ranks.one_process_steps(inp)
+    for how in ("mask", "generator"):
+        assert torch_ranks.dp_mismatches(world[how], one[how], one["names"],
+                                         grad_tol=1e-2, loss_rtol=1e-5) == [], \
+            how
