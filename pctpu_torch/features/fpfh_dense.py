@@ -21,6 +21,7 @@ import torch
 
 from pctpu_torch.device import f32_square
 from pctpu_torch.ops.eigh3 import eigh3
+from pctpu_torch.utils.profiling import span
 
 N_BINS = 11
 BIG = 1e30
@@ -111,77 +112,79 @@ def fpfh_dense(points: torch.Tensor,
     """points [B,N,3] (or [N,3]) -> FPFH descriptors [B,N,33] (or [N,33]),
     `row_chunk` query rows at a time. Defaults: descriptor radius 10,
     normals (`normals_radius_dense`) at radius 4."""
-    squeeze = points.dim() == 2
-    if squeeze:
-        points = points[None]
-        mask = None if mask is None else mask[None]
-        normals = None if normals is None else normals[None]
-    b, n, _ = points.shape
-    if mask is None:
-        mask = torch.ones((b, n), dtype=torch.bool, device=points.device)
-    if normals is None:
-        normals = normals_radius_dense(points, mask, radius=normal_radius,
-                                       row_chunk=row_chunk)
-    r2 = f32_square(radius)
-    pts = torch.where(mask[..., None], points.float(),
-                      torch.zeros_like(points, dtype=torch.float32))
-    p2 = torch.sum(pts * pts, dim=-1)                         # [B,N]
-    colpen = torch.where(mask, 0.0, BIG).float()[:, None, :]  # [B,1,N]
-    ptsT = pts.transpose(1, 2)
-    qs, ns = _pad_rows(pts, row_chunk), _pad_rows(normals, row_chunk)
-    q2s = _pad_rows(p2[..., None], row_chunk)[..., 0]
-    col_ids = torch.arange(n, device=points.device)[None, None, :]
-    vx, vy, vz = (normals[:, None, :, i] for i in range(3))   # [B,1,N]
-    px, py, pz = (pts[:, None, :, i] for i in range(3))
+    with span("fpfh"):
+        squeeze = points.dim() == 2
+        if squeeze:
+            points = points[None]
+            mask = None if mask is None else mask[None]
+            normals = None if normals is None else normals[None]
+        b, n, _ = points.shape
+        if mask is None:
+            mask = torch.ones((b, n), dtype=torch.bool, device=points.device)
+        if normals is None:
+            normals = normals_radius_dense(points, mask, radius=normal_radius,
+                                           row_chunk=row_chunk)
+        r2 = f32_square(radius)
+        pts = torch.where(mask[..., None], points.float(),
+                          torch.zeros_like(points, dtype=torch.float32))
+        p2 = torch.sum(pts * pts, dim=-1)                         # [B,N]
+        colpen = torch.where(mask, 0.0, BIG).float()[:, None, :]  # [B,1,N]
+        ptsT = pts.transpose(1, 2)
+        qs, ns = _pad_rows(pts, row_chunk), _pad_rows(normals, row_chunk)
+        q2s = _pad_rows(p2[..., None], row_chunk)[..., 0]
+        col_ids = torch.arange(n, device=points.device)[None, None, :]
+        vx, vy, vz = (normals[:, None, :, i] for i in range(3))   # [B,1,N]
+        px, py, pz = (pts[:, None, :, i] for i in range(3))
 
-    def rows(i):
-        sl = slice(i * row_chunk, (i + 1) * row_chunk)
-        q, q2 = qs[:, sl], q2s[:, sl]
-        row_ids = torch.arange(sl.start, sl.stop,
-                               device=points.device)[None, :, None]
-        d2 = q2[..., None] + p2[:, None, :] - 2.0 * torch.matmul(q, ptsT)
-        within = (d2 + colpen <= r2) & (row_ids != col_ids)   # [B,Q,N]
-        return q, d2, within.float()
+        def rows(i):
+            sl = slice(i * row_chunk, (i + 1) * row_chunk)
+            q, q2 = qs[:, sl], q2s[:, sl]
+            row_ids = torch.arange(sl.start, sl.stop,
+                                   device=points.device)[None, :, None]
+            d2 = q2[..., None] + p2[:, None, :] - 2.0 * torch.matmul(q, ptsT)
+            within = (d2 + colpen <= r2) & (row_ids != col_ids)   # [B,Q,N]
+            return q, d2, within.float()
 
-    def spfh_chunk(i):
-        q, d2, wf = rows(i)
-        nq = ns[:, i * row_chunk:(i + 1) * row_chunk]
-        dist = torch.sqrt(torch.clamp_min(d2, 1e-12))
-        # pair displacement d = p_col - q_row, as row/column broadcasts
-        dx, dy, dz = px - q[..., 0, None], py - q[..., 1, None], \
-            pz - q[..., 2, None]
-        inv_d = 1.0 / dist
-        ux, uy, uz = nq[..., 0, None], nq[..., 1, None], nq[..., 2, None]
-        f2 = (ux * dx + uy * dy + uz * dz) * inv_d
-        gx = uy * vz - uz * vy                                # u x n_col
-        gy = uz * vx - ux * vz
-        gz = ux * vy - uy * vx
-        s = torch.sqrt(torch.clamp_min(1.0 - f2 * f2, 0.0))
-        inv_s = 1.0 / torch.clamp_min(s, 1e-12)
-        f1 = (dx * gx + dy * gy + dz * gz) * inv_d * inv_s
-        un = ux * vx + uy * vy + uz * vz
-        dn = (dx * vx + dy * vy + dz * vz) * inv_d
-        f3 = torch.atan2((dn - f2 * un) * inv_s, un)
-        cnt = torch.clamp_min(torch.sum(wf, dim=-1), 1.0)     # [B,Q]
-        # one rounding, as the reference (`100.0 / c` would be
-        # c.reciprocal() * 100 here)
-        scale = torch.full_like(cnt, 100.0) / cnt
-        return torch.cat([_hist(f1, -1.0, 1.0, wf, scale),
-                          _hist(f2, -1.0, 1.0, wf, scale),
-                          _hist(f3, -math.pi, math.pi, wf, scale)], dim=-1)
+        def spfh_chunk(i):
+            q, d2, wf = rows(i)
+            nq = ns[:, i * row_chunk:(i + 1) * row_chunk]
+            dist = torch.sqrt(torch.clamp_min(d2, 1e-12))
+            # pair displacement d = p_col - q_row, as row/column broadcasts
+            dx, dy, dz = px - q[..., 0, None], py - q[..., 1, None], \
+                pz - q[..., 2, None]
+            inv_d = 1.0 / dist
+            ux, uy, uz = nq[..., 0, None], nq[..., 1, None], nq[..., 2, None]
+            f2 = (ux * dx + uy * dy + uz * dz) * inv_d
+            gx = uy * vz - uz * vy                                # u x n_col
+            gy = uz * vx - ux * vz
+            gz = ux * vy - uy * vx
+            s = torch.sqrt(torch.clamp_min(1.0 - f2 * f2, 0.0))
+            inv_s = 1.0 / torch.clamp_min(s, 1e-12)
+            f1 = (dx * gx + dy * gy + dz * gz) * inv_d * inv_s
+            un = ux * vx + uy * vy + uz * vz
+            dn = (dx * vx + dy * vy + dz * vz) * inv_d
+            f3 = torch.atan2((dn - f2 * un) * inv_s, un)
+            cnt = torch.clamp_min(torch.sum(wf, dim=-1), 1.0)     # [B,Q]
+            # one rounding, as the reference (`100.0 / c` would be
+            # c.reciprocal() * 100 here)
+            scale = torch.full_like(cnt, 100.0) / cnt
+            return torch.cat([_hist(f1, -1.0, 1.0, wf, scale),
+                              _hist(f2, -1.0, 1.0, wf, scale),
+                              _hist(f3, -math.pi, math.pi, wf, scale)], dim=-1)
 
-    nchunks = _chunks(n, row_chunk)
-    s33 = torch.cat([spfh_chunk(i) for i in range(nchunks)], dim=1)[:, :n]
+        nchunks = _chunks(n, row_chunk)
+        s33 = torch.cat([spfh_chunk(i) for i in range(nchunks)], dim=1)[:, :n]
 
-    def fpfh_chunk(i):
-        _, d2, wf = rows(i)
-        wd = wf / torch.sqrt(torch.clamp_min(d2, 1e-12))     # 1/dist weights
-        k_eff = torch.clamp_min(torch.sum(wf, dim=-1), 1.0)
-        return torch.matmul(wd, s33) / k_eff[..., None]
+        def fpfh_chunk(i):
+            _, d2, wf = rows(i)
+            # 1/dist weights
+            wd = wf / torch.sqrt(torch.clamp_min(d2, 1e-12))
+            k_eff = torch.clamp_min(torch.sum(wf, dim=-1), 1.0)
+            return torch.matmul(wd, s33) / k_eff[..., None]
 
-    nbr = torch.cat([fpfh_chunk(i) for i in range(nchunks)], dim=1)[:, :n]
-    blocks = (s33 + nbr).reshape(b, n, 3, N_BINS)
-    sums = torch.clamp_min(torch.sum(blocks, dim=-1, keepdim=True), 1e-12)
-    out = (100.0 * blocks / sums).reshape(b, n, 3 * N_BINS)
-    out = torch.where(mask[..., None], out, torch.zeros_like(out))
-    return out[0] if squeeze else out
+        nbr = torch.cat([fpfh_chunk(i) for i in range(nchunks)], dim=1)[:, :n]
+        blocks = (s33 + nbr).reshape(b, n, 3, N_BINS)
+        sums = torch.clamp_min(torch.sum(blocks, dim=-1, keepdim=True), 1e-12)
+        out = (100.0 * blocks / sums).reshape(b, n, 3 * N_BINS)
+        out = torch.where(mask[..., None], out, torch.zeros_like(out))
+        return out[0] if squeeze else out

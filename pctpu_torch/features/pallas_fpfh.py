@@ -37,6 +37,7 @@ from pctpu_torch.core.cloud import round_up
 from pctpu_torch.features.fpfh_dense import normals_from_moments
 from pctpu_torch.ops.eigh3 import _cross
 from pctpu_torch.ops.pallas_ballgroup import SMEM_BLOCK
+from pctpu_torch.utils.profiling import span
 
 N_BINS = 11
 BIG = 1e30
@@ -590,29 +591,36 @@ def fpfh_fused(points: torch.Tensor,
     Normals default to `normals_radius_dense(normal_radius)`. Set
     `x_banded=True` only when each cloud's valid prefix is sorted by x up
     to inversions of at most `x_slack` (voxel output: x_slack = leaf)."""
-    squeeze = points.dim() == 2
-    if squeeze:
-        points = points[None]
-        mask = None if mask is None else mask[None]
-        normals = None if normals is None else normals[None]
-    b, n, _ = points.shape
-    if mask is None:
-        mask = torch.ones((b, n), dtype=torch.bool, device=points.device)
-    if normals is None:
-        from pctpu_torch.features.fpfh_dense import normals_radius_dense
-        normals = normals_radius_dense(points, mask,
-                                       radius=float(normal_radius))
-    np_ = round_up(n, max(q_tile, db_tile))
-    r2 = float(radius) ** 2
-    amat, dbmat, col_valid = _pack(points, mask, normals, np_)
-    base, nt = _band(amat[..., 0], col_valid, radius, q_tile, db_tile,
-                     x_banded, x_slack)
-    s33, _ = spfh(amat, dbmat, base, nt, q_tile, db_tile, r2)
-    nbr = wsum(amat, dbmat, base, nt, s33, q_tile, db_tile, r2)
+    with span("fpfh"):
+        squeeze = points.dim() == 2
+        if squeeze:
+            points = points[None]
+            mask = None if mask is None else mask[None]
+            normals = None if normals is None else normals[None]
+        b, n, _ = points.shape
+        if mask is None:
+            mask = torch.ones((b, n), dtype=torch.bool, device=points.device)
+        if normals is None:
+            from pctpu_torch.features.fpfh_dense import normals_radius_dense
+            with span("normals"):
+                normals = normals_radius_dense(points, mask,
+                                               radius=float(normal_radius))
+        np_ = round_up(n, max(q_tile, db_tile))
+        r2 = float(radius) ** 2
+        with span("band"):
+            amat, dbmat, col_valid = _pack(points, mask, normals, np_)
+            base, nt = _band(amat[..., 0], col_valid, radius, q_tile,
+                             db_tile, x_banded, x_slack)
+        with span("spfh"):
+            s33, _ = spfh(amat, dbmat, base, nt, q_tile, db_tile, r2)
+        with span("wsum"):
+            nbr = wsum(amat, dbmat, base, nt, s33, q_tile, db_tile, r2)
 
-    f = (s33 + nbr)[:, :n]
-    blocks = f.reshape(b, n, 3, N_BINS)
-    sums = torch.clamp_min(torch.sum(blocks, dim=-1, keepdim=True), 1e-12)
-    out = (100.0 * blocks / sums).reshape(b, n, 3 * N_BINS)
-    out = torch.where(mask[..., None], out, torch.zeros_like(out))
-    return out[0] if squeeze else out
+        with span("normalise"):
+            f = (s33 + nbr)[:, :n]
+            blocks = f.reshape(b, n, 3, N_BINS)
+            sums = torch.clamp_min(torch.sum(blocks, dim=-1, keepdim=True),
+                                   1e-12)
+            out = (100.0 * blocks / sums).reshape(b, n, 3 * N_BINS)
+            out = torch.where(mask[..., None], out, torch.zeros_like(out))
+        return out[0] if squeeze else out

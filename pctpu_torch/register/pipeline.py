@@ -46,6 +46,7 @@ from pctpu_torch.register.icp import (ICPConfig, icp_fixed_iters_banded_mega,
 from pctpu_torch.register.ransac import (Sampler, generator_sampler,
                                          ransac_registration,
                                          ransac_registration_batch)
+from pctpu_torch.utils.profiling import span
 
 ICP_BACKENDS = ("auto", "mega", "while")
 KEYPOINTS = ("all", "iss")
@@ -187,68 +188,85 @@ def register_pairs(src: PointCloud, dst: PointCloud,
 
     Runs on CUDA unless `device="cpu"`; raises without a card. RANSAC
     draws come from `sampler` if given, else from `generator` (a
-    `torch.Generator` on the run's device; seed 0 when omitted)."""
-    dev = resolve_device(device)
-    src, dst = src.to(dev), dst.to(dev)
-    b = src.points.shape[0]
-    if sampler is None:
-        if generator is None:
-            generator = torch.Generator(device=dev).manual_seed(0)
-        sampler = generator_sampler(generator)
+    `torch.Generator` on the run's device; seed 0 when omitted).
 
-    def preprocess(pc: PointCloud):
-        down, nv = voxel_downsample_capped(pc.points, pc.mask,
-                                           cfg.voxel_size,
-                                           cfg.downsample_capacity)
-        if cfg.feature_backend == "dense":
-            feats = fpfh_dense(down.points, mask=down.mask,
-                               radius=cfg.feature_radius,
-                               normal_radius=cfg.normal_radius)
-        else:
-            # the capped voxel clouds are cell-lexsorted (valid prefix
-            # x-sorted up to one leaf), so the exact x-band pruning applies
-            feats = fpfh_fused(down.points, mask=down.mask,
-                               radius=cfg.feature_radius,
-                               normal_radius=cfg.normal_radius,
-                               x_banded=True, x_slack=cfg.voxel_size)
-        return down, feats, nv
+    Its stages are spans of `utils/profiling.py`, recorded while a torch
+    profiler records: `register_pairs` and, under it, `inputs`, `sites`,
+    `match`, `gather`, `icp_voxel`, `icp_refine` and `icp_stats`, opened
+    here, and `voxel`, `fpfh` and `ransac`, opened by the functions that
+    do those stages."""
+    with span("register_pairs"):
+        dev = resolve_device(device)
+        with span("inputs"):
+            src, dst = src.to(dev), dst.to(dev)
+        b = src.points.shape[0]
+        if sampler is None:
+            if generator is None:
+                generator = torch.Generator(device=dev).manual_seed(0)
+            sampler = generator_sampler(generator)
 
-    sdown, sfeat, s_nv = preprocess(src)
-    ddown, dfeat, d_nv = preprocess(dst)
-    matches = match_features(sfeat, dfeat,
-                             src_mask=keypoint_sites(sdown, cfg),
-                             dst_mask=keypoint_sites(ddown, cfg), mutual=True)
-    dst_kp = gather_points(ddown.points, matches.dst_idx)
-    rr = ransac_registration_batch(
-        sdown.points, dst_kp, matches.valid, sampler,
-        dist_thresh=cfg.ransac_dist, num_hypotheses=cfg.ransac_hypotheses,
-        m_cap=cfg.ransac_m_cap)
-    num_matches = matches.valid.sum(dim=1, dtype=torch.int32)
+        def preprocess(pc: PointCloud):
+            down, nv = voxel_downsample_capped(pc.points, pc.mask,
+                                               cfg.voxel_size,
+                                               cfg.downsample_capacity)
+            if cfg.feature_backend == "dense":
+                feats = fpfh_dense(down.points, mask=down.mask,
+                                   radius=cfg.feature_radius,
+                                   normal_radius=cfg.normal_radius)
+            else:
+                # the capped voxel clouds are cell-lexsorted (valid prefix
+                # x-sorted up to one leaf), so the exact x-band pruning applies
+                feats = fpfh_fused(down.points, mask=down.mask,
+                                   radius=cfg.feature_radius,
+                                   normal_radius=cfg.normal_radius,
+                                   x_banded=True, x_slack=cfg.voxel_size)
+            return down, feats, nv
 
-    if cfg.icp_backend == "while":
-        icp_cfg = _icp_config(cfg)
-        res = [icp_point_to_point(src.points[i], src.mask[i], dst.points[i],
-                                  dst.mask[i], init_T=rr.T[i], cfg=icp_cfg,
-                                  device=dev) for i in range(b)]
-        return RegistrationOutput(
-            torch.stack([r.T for r in res]), rr.T, rr.fitness,
-            torch.stack([r.iters for r in res]),
-            torch.stack([r.rmse for r in res]), num_matches, s_nv, d_nv)
+        sdown, sfeat, s_nv = preprocess(src)
+        ddown, dfeat, d_nv = preprocess(dst)
+        with span("sites"):
+            s_sites = keypoint_sites(sdown, cfg)
+            d_sites = keypoint_sites(ddown, cfg)
+        with span("match"):
+            matches = match_features(sfeat, dfeat, src_mask=s_sites,
+                                     dst_mask=d_sites, mutual=True)
+        with span("gather"):
+            dst_kp = gather_points(ddown.points, matches.dst_idx)
+        rr = ransac_registration_batch(
+            sdown.points, dst_kp, matches.valid, sampler,
+            dist_thresh=cfg.ransac_dist, num_hypotheses=cfg.ransac_hypotheses,
+            m_cap=cfg.ransac_m_cap)
+        num_matches = matches.valid.sum(dim=1, dtype=torch.int32)
 
-    # multiscale ICP: exact-window iterations on the 2k voxel clouds, then
-    # exact strided full-res refine iterations against the full target
-    T = icp_fixed_iters_banded_mega_batch(
-        sdown.points, sdown.mask, ddown.points, ddown.mask, init_T=rr.T,
-        coarse_iters=cfg.icp_voxel_iters, polish_iters=0,
-        dist_thresh=cfg.icp_dist_thresh, block=2048, window_blocks=1,
-        query_tile=2048)
-    if cfg.icp_refine_iters > 0:
-        T = _refine_exact_batch(T, src, dst, cfg)
-    _, rmse = _icp_stats_subsampled(T, src, dst, cfg)
-    iters = torch.full((b,), cfg.icp_voxel_iters + cfg.icp_refine_iters,
-                       dtype=torch.int32, device=dev)
-    return RegistrationOutput(T, rr.T, rr.fitness, iters, rmse,
-                              num_matches, s_nv, d_nv)
+        if cfg.icp_backend == "while":
+            icp_cfg = _icp_config(cfg)
+            res = [icp_point_to_point(src.points[i], src.mask[i],
+                                      dst.points[i], dst.mask[i],
+                                      init_T=rr.T[i], cfg=icp_cfg,
+                                      device=dev) for i in range(b)]
+            return RegistrationOutput(
+                torch.stack([r.T for r in res]), rr.T, rr.fitness,
+                torch.stack([r.iters for r in res]),
+                torch.stack([r.rmse for r in res]), num_matches, s_nv, d_nv)
+
+        # multiscale ICP: exact-window iterations on the 2k voxel clouds,
+        # then exact strided full-res refine iterations against the full
+        # target
+        with span("icp_voxel"):
+            T = icp_fixed_iters_banded_mega_batch(
+                sdown.points, sdown.mask, ddown.points, ddown.mask,
+                init_T=rr.T, coarse_iters=cfg.icp_voxel_iters,
+                polish_iters=0, dist_thresh=cfg.icp_dist_thresh, block=2048,
+                window_blocks=1, query_tile=2048)
+        if cfg.icp_refine_iters > 0:
+            with span("icp_refine"):
+                T = _refine_exact_batch(T, src, dst, cfg)
+        with span("icp_stats"):
+            _, rmse = _icp_stats_subsampled(T, src, dst, cfg)
+        iters = torch.full((b,), cfg.icp_voxel_iters + cfg.icp_refine_iters,
+                           dtype=torch.int32, device=dev)
+        return RegistrationOutput(T, rr.T, rr.fitness, iters, rmse,
+                                  num_matches, s_nv, d_nv)
 
 
 # ---------------------------------------------------------------------------

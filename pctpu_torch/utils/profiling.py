@@ -3,12 +3,41 @@
 A timer that syncs (a CUDA synchronize, then every tensor fetched to the
 host), a FLOP count from `torch.utils.flop_counter`, model-FLOPs
 utilisation against the H100's published peaks, a `torch.profiler` trace
-context, and an accumulating host section timer.
+context, an accumulating host section timer, and the program's spans.
+
+Spans. The main path opens `span(name)` around its stages (in
+`register_pairs`: the clouds' copy to the card, the voxel grid, FPFH and
+its parts, matching, RANSAC and its parts, the three ICP stages). A span
+costs one check of the profiler's state while no torch profiler records,
+and does nothing else. While one records, a span opens the profiler
+range `pct:<path>`, `path` being the open spans' names joined by "/" on
+this thread (`register_pairs/ransac/score`), and at its close adds its
+host seconds and a count of 1 under `path` in `TRACE`. A span never
+synchronizes: its host time is the stage's dispatch plus whatever blocks
+the host inside it (a pageable copy, a value read back). The profiler's
+state is per thread, so spans record on the thread that started it.
+
+To trace a call, run it under `profiler_trace` (or any
+`torch.profiler.profile`) after a warm-up call:
+
+    from pctpu_torch.utils import profiling
+    register_pairs(src, dst, cfg)                  # warm-up
+    profiling.TRACE.reset()
+    with profiling.profiler_trace("build/trace"):
+        register_pairs(src, dst, cfg)
+    print(profiling.TRACE.report())
+
+The Chrome trace (chrome://tracing, Perfetto) shows each `pct:` range on
+the host's row above the kernels it launched, on the same clock, so an
+idle gap on the device sits under the stage the host was in. `report()`
+prints one line a path, parents before children: its total host ms, its
+count, and its self ms, the total less its direct children's.
 """
 from __future__ import annotations
 
 import contextlib
 import os
+import threading
 import time
 from typing import Callable, Dict
 
@@ -99,11 +128,25 @@ def profiler_trace(logdir: str):
 
 
 class Timer:
-    """Accumulating section timer (host-side orchestration profiling)."""
+    """Accumulating host section timer. A key is a path of names joined by
+    "/"; `report()` reads the paths as a tree. Safe to add to from several
+    threads."""
 
     def __init__(self):
         self.totals: Dict[str, float] = {}
         self.counts: Dict[str, int] = {}
+        self._lock = threading.Lock()
+
+    def add(self, path: str, seconds: float) -> None:
+        """One more occurrence of `path`, lasting `seconds`."""
+        with self._lock:
+            self.totals[path] = self.totals.get(path, 0.0) + seconds
+            self.counts[path] = self.counts.get(path, 0) + 1
+
+    def reset(self) -> None:
+        with self._lock:
+            self.totals.clear()
+            self.counts.clear()
 
     @contextlib.contextmanager
     def section(self, name: str):
@@ -111,13 +154,71 @@ class Timer:
         try:
             yield
         finally:
-            dt = time.perf_counter() - t0
-            self.totals[name] = self.totals.get(name, 0.0) + dt
-            self.counts[name] = self.counts.get(name, 0) + 1
+            self.add(name, time.perf_counter() - t0)
+
+    def self_time(self, path: str) -> float:
+        """The path's total less the totals of its direct children."""
+        with self._lock:
+            totals = dict(self.totals)
+        return _self_time(totals, path)
 
     def report(self) -> str:
-        lines = []
-        for name in sorted(self.totals, key=lambda n: -self.totals[n]):
-            lines.append(f"{name}: {self.totals[name]*1e3:.1f} ms "
-                         f"({self.counts[name]} calls)")
-        return "\n".join(lines)
+        """One line a path, each parent before its children: total ms,
+        count, self ms."""
+        with self._lock:
+            totals, counts = dict(self.totals), dict(self.counts)
+        return "\n".join(
+            f"{p}: {totals[p] * 1e3:.3f} ms ({counts[p]} calls, "
+            f"self {_self_time(totals, p) * 1e3:.3f} ms)"
+            for p in sorted(totals, key=lambda p: p.split("/")))
+
+
+def _self_time(totals: Dict[str, float], path: str) -> float:
+    depth = path.count("/") + 1
+    return totals[path] - sum(
+        t for p, t in totals.items()
+        if p.startswith(path + "/") and p.count("/") == depth)
+
+
+# the spans' record, filled only while a torch profiler records
+TRACE = Timer()
+_OFF = contextlib.nullcontext()
+_profiler_on = torch._C._autograd._profiler_enabled
+
+
+class _OpenSpans(threading.local):
+    def __init__(self):
+        self.names = []
+
+
+_open = _OpenSpans()
+
+
+class _Span:
+    __slots__ = ("name", "path", "range", "t0")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        _open.names.append(self.name)
+        self.path = "/".join(_open.names)
+        self.range = torch.profiler.record_function("pct:" + self.path)
+        self.range.__enter__()
+        self.t0 = time.perf_counter()
+
+    def __exit__(self, *exc):
+        dt = time.perf_counter() - self.t0
+        self.range.__exit__(*exc)
+        _open.names.pop()
+        TRACE.add(self.path, dt)
+        return False
+
+
+def span(name: str):
+    """A context for one stage of the program: the shared no-op while no
+    torch profiler records, else a `pct:` profiler range whose host
+    seconds go to `TRACE` (module docstring)."""
+    if not _profiler_on():
+        return _OFF
+    return _Span(name)

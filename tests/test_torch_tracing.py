@@ -1,0 +1,314 @@
+"""The program's spans (`pctpu_torch/utils/profiling.py`: `span`, `TRACE`,
+`Timer`) on the CPU: silent and free while no profiler records; inside
+`register_pairs` under a profiler, the whole tree of stages with its
+counts, nested on the host's clock and in the profiler's ranges, and the
+outputs unchanged bit for bit; the Chrome trace of `profiler_trace`; and
+the benchmark's four readers of the spans."""
+import itertools
+import json
+import sys
+import threading
+import tracemalloc
+
+import numpy as np
+import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from pctpu_torch.core.cloud import PointCloud
+from pctpu_torch.register import pipeline
+from pctpu_torch.utils import profiling
+
+TREE = {  # path -> occurrences in one call
+    "register_pairs": 1, "register_pairs/inputs": 1,
+    "register_pairs/voxel": 2, "register_pairs/fpfh": 2,
+    **{f"register_pairs/fpfh/{s}": 2
+       for s in ("normals", "band", "spfh", "wsum", "normalise")},
+    "register_pairs/sites": 1, "register_pairs/match": 1,
+    "register_pairs/gather": 1, "register_pairs/ransac": 1,
+    **{f"register_pairs/ransac/{s}": 1
+       for s in ("compact", "sample", "solve", "score", "select",
+                 "refine")},
+    "register_pairs/icp_voxel": 1, "register_pairs/icp_refine": 1,
+    "register_pairs/icp_stats": 1}
+READERS = {"inputs_ms_per_pair.reg": "register_pairs/inputs",
+           "voxel_dispatch_ms_per_pair.reg": "register_pairs/voxel",
+           "fpfh_dispatch_ms_per_pair.reg": "register_pairs/fpfh",
+           "ransac_dispatch_ms_per_pair.reg": "register_pairs/ransac"}
+CFG = pipeline.RegistrationConfig(
+    voxel_size=1.0, feature_radius=5.0, ransac_dist=1.5,
+    ransac_hypotheses=256, icp_dist_thresh=2.0, downsample_capacity=512,
+    refine_subsample=512, stats_subsample=256)
+
+
+def _pairs():
+    """Two pairs of a 1,200-point ground-and-walls scene, moved 10 deg
+    and [1, -0.5, 0.1] m."""
+    rng = np.random.default_rng(3)
+    g = rng.uniform(-15, 15, (600, 3))
+    g[:, 2] = rng.normal(scale=0.05, size=600)
+    walls = rng.uniform(-15, 15, (600, 3))
+    walls[:, 0] = np.round(walls[:, 0] / 10) * 10
+    walls[:, 2] = np.abs(walls[:, 2]) / 3
+    src = np.concatenate([g, walls]).astype(np.float32)
+    c, s = np.cos(np.radians(10)), np.sin(np.radians(10))
+    R = np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]], np.float32)
+    dst = src @ R.T + np.array([1.0, -0.5, 0.1], np.float32)
+    src2, dst2 = np.stack([src, src]), np.stack([dst, dst[::-1]])
+    mask = torch.ones(src2.shape[:2], dtype=torch.bool)
+    return (PointCloud(torch.from_numpy(src2), mask),
+            PointCloud(torch.from_numpy(np.ascontiguousarray(dst2)), mask))
+
+
+def _call(src, dst):
+    return pipeline.register_pairs(
+        src, dst, CFG, generator=torch.Generator().manual_seed(0),
+        device="cpu")
+
+
+@pytest.fixture(scope="module")
+def traced():
+    """One call with no profiler, one under a CPU profiler: (outputs off,
+    outputs on, the spans' totals and counts, the `pct:` events as
+    (name, start_ns, end_ns))."""
+    src, dst = _pairs()
+    profiling.TRACE.reset()
+    off = _call(src, dst)
+    assert not profiling.TRACE.totals
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        on = _call(src, dst)
+    totals = dict(profiling.TRACE.totals)
+    counts = dict(profiling.TRACE.counts)
+    events = [(e.name()[4:], e.start_ns(), e.start_ns() + e.duration_ns())
+              for e in prof.profiler.kineto_results.events()
+              if e.name().startswith("pct:")]
+    profiling.TRACE.reset()
+    return off, on, totals, counts, events
+
+
+def test_span_off_is_the_shared_noop_and_calls_no_range(monkeypatch):
+    assert profiling.span("a") is profiling.span("b") is profiling._OFF
+
+    def no_range(name):
+        raise AssertionError(f"record_function({name!r}) with no profiler")
+    monkeypatch.setattr(torch.profiler, "record_function", no_range)
+    profiling.TRACE.reset()
+    _call(*_pairs())
+    assert profiling.TRACE.totals == {} and profiling.TRACE.counts == {}
+
+
+def _peak_bytes(loop):
+    """Peak bytes traced over a second run of `loop`, above where it
+    started."""
+    tracemalloc.start()
+    try:
+        loop()
+        tracemalloc.reset_peak()
+        before, _ = tracemalloc.get_traced_memory()
+        loop()
+        _, peak = tracemalloc.get_traced_memory()
+    finally:
+        tracemalloc.stop()
+    return peak - before
+
+
+def test_span_off_allocates_nothing():
+    """`span` itself allocates nothing, and a `with` on it no more than a
+    `with` on a context made beforehand (the statement's own bound
+    method)."""
+    span, off = profiling.span, profiling._OFF
+    n = 1000
+
+    def empty():
+        for _ in itertools.repeat(None, n):
+            pass
+
+    def calls():
+        for _ in itertools.repeat(None, n):
+            span("a")
+
+    def spans():
+        for _ in itertools.repeat(None, n):
+            with span("a"):
+                pass
+
+    def plain_with():
+        for _ in itertools.repeat(None, n):
+            with off:
+                pass
+    assert _peak_bytes(calls) == _peak_bytes(empty)
+    assert _peak_bytes(spans) == _peak_bytes(plain_with)
+
+
+@pytest.mark.parametrize("path", sorted(TREE))
+def test_profiled_call_records_each_path(traced, path):
+    _, _, totals, counts, events = traced
+    assert counts.get(path) == TREE[path], (path, counts)
+    assert totals[path] > 0
+    assert sum(1 for n, _, _ in events if n == path) == TREE[path]
+
+
+def test_profiled_call_records_no_other_path(traced):
+    assert set(traced[3]) == set(TREE)
+
+
+def test_parent_total_covers_its_children(traced):
+    totals = traced[2]
+    for path in TREE:
+        kids = [p for p in TREE if p.rpartition("/")[0] == path]
+        assert totals[path] >= sum(totals[k] for k in kids), path
+
+
+def test_child_ranges_lie_inside_their_parents(traced):
+    events = traced[4]
+    for name, s, e in events:
+        parent = name.rpartition("/")[0]
+        if not parent:
+            continue
+        holders = [(ps, pe) for n, ps, pe in events
+                   if n == parent and ps <= s and e <= pe]
+        assert len(holders) == 1, (name, s, e)
+
+
+def test_outputs_equal_with_the_profiler_on_and_off(traced):
+    off, on = traced[0], traced[1]
+    for name, a, b in zip(off._fields, off, on):
+        assert torch.equal(a, b), name
+
+
+def test_profiler_trace_writes_the_program_ranges(tmp_path):
+    src, dst = _pairs()
+    with profiling.profiler_trace(str(tmp_path)):
+        _call(src, dst)
+    profiling.TRACE.reset()
+    (trace_file,) = tmp_path.glob("trace-*.json")
+    names = {e.get("name") for e in
+             json.loads(trace_file.read_text())["traceEvents"]}
+    assert "pct:register_pairs/ransac/score" in names
+    assert "pct:register_pairs/fpfh/spfh" in names
+
+
+def test_a_raising_span_closes_its_path():
+    profiling.TRACE.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        with pytest.raises(ValueError):
+            with profiling.span("a"):
+                raise ValueError
+        with profiling.span("b"):
+            pass
+    assert set(profiling.TRACE.counts) == {"a", "b"}
+    profiling.TRACE.reset()
+
+
+def test_each_thread_keeps_its_own_path(monkeypatch):
+    """Spans on four threads at once (the profiler's state is per thread,
+    so it is read as on for the test) nest on their own thread only."""
+    monkeypatch.setattr(profiling, "_profiler_on", lambda: True)
+    profiling.TRACE.reset()
+    barrier = threading.Barrier(4)
+
+    def work(i):
+        with profiling.span(f"t{i}"):
+            barrier.wait(timeout=30)
+            with profiling.span("x"):
+                pass
+            barrier.wait(timeout=30)
+
+    threads = [threading.Thread(target=work, args=(i,)) for i in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=60)
+    assert not any(t.is_alive() for t in threads)
+    assert profiling.TRACE.counts == {
+        **{f"t{i}": 1 for i in range(4)}, **{f"t{i}/x": 1 for i in range(4)}}
+    profiling.TRACE.reset()
+
+
+def test_timer_self_time_on_a_tree():
+    t = profiling.Timer()
+    for path, s in (("a", 10.0), ("a/b", 3.0), ("a/c", 2.0), ("a/b/d", 1.0),
+                    ("ab", 5.0), ("a", 4.0)):
+        t.add(path, s)
+    assert t.totals["a"] == 14.0 and t.counts["a"] == 2
+    assert t.self_time("a") == 9.0          # 14 - (3 + 2): not a/b/d, ab
+    assert t.self_time("a/b") == 2.0
+    assert t.self_time("ab") == 5.0
+    lines = t.report().splitlines()
+    assert [ln.split(":")[0] for ln in lines] == ["a", "a/b", "a/b/d", "a/c",
+                                                  "ab"]
+    assert lines[0] == "a: 14000.000 ms (2 calls, self 9000.000 ms)"
+    t.reset()
+    assert t.totals == {} and t.counts == {} and t.report() == ""
+
+
+def test_timer_add_loses_no_update_across_threads():
+    t = profiling.Timer()
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(
+            target=lambda: [t.add("p", 1.0) for _ in range(2000)])
+            for _ in range(16)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=60)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(th.is_alive() for th in threads)
+    assert t.counts["p"] == 32000 and t.totals["p"] == 32000.0
+
+
+# -- the benchmark's readers of the spans -----------------------------------
+
+def _reader(name):
+    from portbench.common.harness import BENCH_DIR, load_module
+    return load_module(BENCH_DIR / "metrics" / f"{name}.py",
+                       "portbench_metric_" + name.replace(".", "_"))
+
+
+@pytest.fixture(scope="module")
+def traced_cell():
+    """A traced run of `reg-b16-35deg` on the CPU at 2 pairs of 4,096
+    points, one profiled call."""
+    from portbench.common.harness import run_cell
+    profiling.TRACE.reset()
+    res = run_cell("reg-b16-35deg", 2**31 + 91, 0.0, True, device="cpu",
+                   traffic_overrides=dict(batch=2, pool_batches=1,
+                                          warmup_calls=1, check_calls=1,
+                                          trace_calls=1),
+                   config_overrides=dict(scan_points=4096),
+                   log=lambda m: None)
+    totals = dict(profiling.TRACE.totals)
+    profiling.TRACE.reset()
+    return res, totals
+
+
+@pytest.mark.parametrize("name", sorted(READERS))
+def test_reader_reads_its_span_in_a_traced_run(traced_cell, name):
+    res, totals = traced_cell
+    v = res["metrics"][name]
+    assert v["unit"] == "ms" and v["value"] > 0
+    # the span's host ms over the profiled call's 2 pairs
+    assert v["value"] == pytest.approx(totals[READERS[name]] * 1e3 / 2)
+
+
+def test_readers_find_nothing_without_a_trace_or_a_span(monkeypatch):
+    from portbench.common.harness import RunView
+
+    class Trace:
+        units = 2
+    profiling.TRACE.reset()
+    traced_run = RunView("pairs", 1, 2, [0.1], 0.1, 1.0, Trace())
+    untraced = RunView("pairs", 1, 2, [0.1], 0.1, 1.0, None)
+    for name in READERS:
+        assert _reader(name).read(untraced) is None
+        assert _reader(name).read(traced_run) is None    # never ran
+    profiling.TRACE.add("register_pairs/ransac", 0.004)
+    assert _reader("ransac_dispatch_ms_per_pair.reg").read(
+        traced_run) == pytest.approx(2.0)
+    profiling.TRACE.reset()
+    monkeypatch.delattr(profiling, "TRACE")              # a program
+    assert _reader("ransac_dispatch_ms_per_pair.reg").read(  # without spans
+        traced_run) is None

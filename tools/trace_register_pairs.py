@@ -1,0 +1,198 @@
+#!/usr/bin/env python3
+"""The program's spans in `register_pairs` on one NVIDIA GPU, at the
+shapes of whole HDL-64E scans (`chip_smoke.py`'s synthetic 124,668-point
+scan against its copy moved 35 deg), `RegistrationConfig()` defaults:
+
+1. what a span costs on the host: with no profiler recording (the shared
+   no-op) and with one recording (a `pct:` range and a `TRACE` entry),
+   microseconds a span over many spans;
+2. outputs with the profiler on equal to those with it off, bit for bit;
+3. one call under `profiler_trace`: each kernel of the Chrome trace put
+   under the innermost `pct:` range that holds the host call which
+   launched it (joined by the launch's correlation id), every K4
+   (`icp_mega_kernel`) launch required inside `register_pairs/icp_voxel`
+   or `register_pairs/icp_refine`, every K1 (`nn1_kernel`) launch of the
+   stats inside `register_pairs/icp_stats`;
+4. `TRACE.report()` over as many profiled calls as the benchmark's traced
+   run profiles (12 calls of 16 pairs, 4 of 64), and the host ms a call
+   with the spans recording against the same calls with them silenced,
+   under the profiler both times, in turns.
+
+    python3 tools/trace_register_pairs.py [--seed 0]
+
+Prints one JSON line and writes it, with the reports, to
+`chiprun_out/trace_register_pairs.json`; the Chrome traces of step 3 go
+to `chiprun_out/trace_register_pairs/`.
+"""
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+import time
+from collections import Counter
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+OUT = ROOT / "chiprun_out"
+PROFILED = {16: 12, 64: 4}      # pairs a call: calls profiled
+
+
+def span_costs(profiling, torch, n_off=1_000_000, n_on=20_000):
+    """µs a span with no profiler recording, and with one recording
+    (CPU and CUDA activity, as the benchmark's traced run)."""
+    span = profiling.span
+    t = time.perf_counter()
+    for _ in range(n_off):
+        with span("x"):
+            pass
+    off = (time.perf_counter() - t) / n_off * 1e6
+    t = time.perf_counter()
+    for _ in range(n_off):
+        pass
+    empty = (time.perf_counter() - t) / n_off * 1e6
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts):
+        t = time.perf_counter()
+        for _ in range(n_on):
+            with span("x"):
+                pass
+        on = (time.perf_counter() - t) / n_on * 1e6
+    profiling.TRACE.reset()
+    return {"off_us": off, "empty_loop_us": empty, "on_us": on}
+
+
+def launch_map(trace_file):
+    """Each kernel of a Chrome trace -> the innermost `pct:` range (by
+    name, without the prefix) holding its launch on the host."""
+    ev = json.loads(Path(trace_file).read_text())["traceEvents"]
+    ranges = sorted(((e["ts"], e["ts"] + e["dur"], e["name"][4:])
+                     for e in ev if e.get("ph") == "X"
+                     and e.get("cat") == "user_annotation"
+                     and e["name"].startswith("pct:")), key=lambda r: r[0])
+    launch_ts = {e["args"]["correlation"]: e["ts"] for e in ev
+                 if e.get("ph") == "X"
+                 and e.get("cat") in ("cuda_runtime", "cuda_driver")
+                 and "correlation" in e.get("args", {})}
+    out = []
+    for e in ev:
+        if e.get("ph") != "X" or e.get("cat") != "kernel":
+            continue
+        ts = launch_ts.get(e.get("args", {}).get("correlation"))
+        inner = None
+        if ts is not None:
+            holding = [r for r in ranges if r[0] <= ts <= r[1]]
+            if holding:
+                inner = min(holding, key=lambda r: r[1] - r[0])[2]
+        out.append((e["name"], inner))
+    return out
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("--seed", type=int, default=0)
+    args = p.parse_args(argv)
+
+    import torch
+    import chip_smoke
+    from pctpu_torch.core.cloud import PointCloud
+    from pctpu_torch.register.pipeline import (RegistrationConfig,
+                                               register_pairs)
+    from pctpu_torch.utils import profiling
+
+    if not torch.cuda.is_available():
+        print("trace_register_pairs: no CUDA device", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda")
+    gpu = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True,
+        text=True).stdout.strip()
+    res = {"device": gpu, "torch": torch.__version__,
+           "cuda": torch.version.cuda,
+           "spans": span_costs(profiling, torch)}
+    rng = np.random.default_rng([args.seed, 9])
+    scan = chip_smoke.lidar_scan(rng)
+    cfg = RegistrationConfig()
+
+    for b, calls in PROFILED.items():
+        src, dst, _ = chip_smoke.make_pairs(scan, rng, b, len(scan),
+                                            chip_smoke.ROT_DEG)
+        mask = torch.ones(src.shape[:2], dtype=torch.bool)
+        s_pc = PointCloud(torch.from_numpy(src), mask)
+        d_pc = PointCloud(torch.from_numpy(dst), mask)
+
+        def call():
+            out = register_pairs(
+                s_pc, d_pc, cfg, generator=torch.Generator(
+                    device=dev).manual_seed(args.seed), device=dev)
+            torch.cuda.synchronize()
+            return out
+
+        for _ in range(2):
+            off = call()
+        profiling.TRACE.reset()
+        logdir = OUT / "trace_register_pairs" / f"b{b}"
+        with profiling.profiler_trace(str(logdir)):
+            on = call()
+        equal = all(torch.equal(x, y) for x, y in zip(off, on))
+        trace_file = max(logdir.glob("trace-*.json"),
+                         key=lambda f: f.stat().st_mtime)
+        kmap = launch_map(trace_file)
+        k4 = Counter(r for n, r in kmap if "icp_mega_kernel" in n)
+        k1 = Counter(r for n, r in kmap if "nn1_kernel" in n)
+        by_range = Counter(r for _, r in kmap)
+        ok = (bool(k4) and bool(k1)
+              and set(k4) <= {"register_pairs/icp_voxel",
+                              "register_pairs/icp_refine"}
+              and set(k1) == {"register_pairs/icp_stats"})
+
+        # spans recording against spans silenced, profiler on both times
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        profiling.TRACE.reset()
+        on_ms, silent_ms = [], []
+        record = profiling._profiler_on
+        with torch.profiler.profile(activities=acts):
+            for i in range(2 * calls):
+                silent = i % 4 in (1, 2)
+                if silent:
+                    profiling._profiler_on = lambda: False
+                try:
+                    t = time.perf_counter()
+                    call()
+                    dt = (time.perf_counter() - t) * 1e3
+                finally:
+                    profiling._profiler_on = record
+                (silent_ms if silent else on_ms).append(dt)
+        spans_a_call = sum(profiling.TRACE.counts.values()) / calls
+        res[f"b{b}"] = {
+            "calls_profiled": calls, "outputs_equal_on_off": equal,
+            "kernels": len(kmap), "k4_ranges": dict(k4),
+            "k1_ranges": dict(k1), "kernels_by_range": dict(by_range),
+            "launches_in_place": ok,
+            "spans_a_call": spans_a_call,
+            "call_ms_spans_on": on_ms, "call_ms_spans_silent": silent_ms,
+            "median_on_ms": statistics.median(on_ms),
+            "median_silent_ms": statistics.median(silent_ms),
+            "ms_a_pair": {k: v * 1e3 / (calls * b) for k, v in
+                          profiling.TRACE.totals.items()},
+            "report": profiling.TRACE.report()}
+        print(f"B {b}, {calls} profiled calls:\n"
+              + profiling.TRACE.report(), file=sys.stderr)
+    OUT.mkdir(exist_ok=True)
+    (OUT / "trace_register_pairs.json").write_text(json.dumps(res, indent=1))
+    print(json.dumps({k: ({f: x for f, x in v.items() if f != "report"}
+                          if k.startswith("b") else v)
+                      for k, v in res.items()}))
+    return 0 if all(res[f"b{b}"]["launches_in_place"]
+                    and res[f"b{b}"]["outputs_equal_on_off"]
+                    for b in PROFILED) else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())
