@@ -8,6 +8,12 @@ Every hypothesis is sampled, solved (closed-form triad rotation), checked
 (edge-length ratio, non-degenerate triangle) and scored at once; the
 whole [H,M] residual matrix is one [H,16]x[16,M] product per pair.
 
+With `refine` (the default) the best hypothesis' select, its weighted
+Procrustes refit, the re-score and the result are one step,
+`ransac_refine`: on CUDA tensors one launch of the hand-written kernel
+`csrc/ransac.cu` (one block a pair), on CPU tensors the plain chain
+`_select_refine_plain`.
+
 Draws: `jax.random` cannot be reproduced in PyTorch, so the sampler is
 injectable — `sampler(nv [B] int, H) -> [B,H,3] int` positions in
 [0, nv) (B = 1 for the single-pair functions; the adaptive loop calls it
@@ -20,6 +26,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from pctpu_torch import kernels
 from pctpu_torch.core import se3
 from pctpu_torch.device import f32_square
 from pctpu_torch.ops.eigh3 import _cross
@@ -161,23 +168,105 @@ def ransac_registration_batch(src_pts: torch.Tensor, dst_pts: torch.Tensor,
             inl = (err2 < thresh2) & corr_valid[:, None, :]
             scores = inl.sum(dim=2, dtype=torch.int32) * sample_ok.int()
 
+        if refine:
+            with span("refine"):
+                return ransac_refine(scores, inl, src_pts.contiguous(),
+                                     dst_pts.contiguous(),
+                                     corr_valid.contiguous(), n_valid,
+                                     thresh2)
+
         with span("select"):
             best = torch.argmax(scores, dim=1)  # first index of the maximum
             ar = torch.arange(b, device=dev)
             R, t = Rs[ar, best], ts[ar, best]
             inlier_mask = inl[ar, best]
+        return _result(R, t, inlier_mask, n_valid)
 
-        if refine:
-            with span("refine"):
-                R, t = weighted_procrustes(src_pts, dst_pts,
-                                           inlier_mask.float())
-                err2b = torch.sum((src_pts @ R.transpose(1, 2)
-                                   + t[:, None, :] - dst_pts) ** 2, dim=-1)
-                inlier_mask = (err2b < thresh2) & corr_valid
 
-        T = se3.make_transform(R, t)
-        inliers = inlier_mask.sum(dim=1, dtype=torch.int32)
-        return RansacResult(T, inliers, inlier_mask, inliers / n_valid)
+def _result(R: torch.Tensor, t: torch.Tensor, inlier_mask: torch.Tensor,
+            n_valid: torch.Tensor) -> RansacResult:
+    T = se3.make_transform(R, t)
+    inliers = inlier_mask.sum(dim=1, dtype=torch.int32)
+    return RansacResult(T, inliers, inlier_mask, inliers / n_valid)
+
+
+def _select_refine_plain(scores: torch.Tensor, inl: torch.Tensor,
+                         src_pts: torch.Tensor, dst_pts: torch.Tensor,
+                         corr_valid: torch.Tensor, n_valid: torch.Tensor,
+                         thresh2: float) -> RansacResult:
+    """Plain version of `ransac_refine`: the first index of each pair's
+    maximum score, weighted Procrustes on that hypothesis' inliers, the
+    re-score of every correspondence at thresh2, and the result."""
+    b = scores.shape[0]
+    best = torch.argmax(scores, dim=1)  # first index of the maximum
+    ar = torch.arange(b, device=scores.device)
+    R, t = weighted_procrustes(src_pts, dst_pts, inl[ar, best].float())
+    err2b = torch.sum((src_pts @ R.transpose(1, 2)
+                       + t[:, None, :] - dst_pts) ** 2, dim=-1)
+    inlier_mask = (err2b < thresh2) & corr_valid
+    return _result(R, t, inlier_mask, n_valid)
+
+
+def _check_refine(scores, inl, src_pts, dst_pts, corr_valid, n_valid):
+    if scores.dim() != 2 or inl.dim() != 3:
+        raise ValueError(f"ransac_refine: scores {tuple(scores.shape)}, inl "
+                         f"{tuple(inl.shape)}: expected [B,H] and [B,H,M]")
+    b, h = scores.shape
+    m = inl.shape[2]
+    want = ((b, h), (b, h, m), (b, m, 3), (b, m, 3), (b, m), (b,))
+    dtypes = (torch.int32, torch.bool, torch.float32, torch.float32,
+              torch.bool, torch.float32)
+    got = (scores, inl, src_pts, dst_pts, corr_valid, n_valid)
+    if h < 1 or any(tuple(x.shape) != w for x, w in zip(got, want)):
+        raise ValueError("ransac_refine: shapes "
+                         f"{[tuple(x.shape) for x in got]}, expected {list(want)}"
+                         " with H >= 1")
+    for i, (x, dt) in enumerate(zip(got, dtypes)):
+        if x.dtype != dt:
+            raise ValueError(f"ransac_refine: tensor {i} has dtype {x.dtype}, "
+                             f"expected {dt}")
+
+
+def ransac_refine(scores: torch.Tensor, inl: torch.Tensor,
+                  src_pts: torch.Tensor, dst_pts: torch.Tensor,
+                  corr_valid: torch.Tensor, n_valid: torch.Tensor,
+                  thresh2: float) -> RansacResult:
+    """RANSAC's select, refine and result. scores [B,H] int32 (H >= 1),
+    inl [B,H,M] bool, src/dst [B,M,3] f32, corr_valid [B,M] bool, n_valid
+    [B] f32 -> RansacResult. CPU tensors take `_select_refine_plain`; CUDA
+    tensors launch the kernel or raise."""
+    _check_refine(scores, inl, src_pts, dst_pts, corr_valid, n_valid)
+    if scores.device.type == "cpu":
+        return _select_refine_plain(scores, inl, src_pts, dst_pts,
+                                    corr_valid, n_valid, thresh2)
+    return _launch_refine(scores, inl, src_pts, dst_pts, corr_valid, n_valid,
+                          thresh2)
+
+
+def _launch_refine(scores, inl, src_pts, dst_pts, corr_valid, n_valid,
+                   thresh2):
+    """One launch of `csrc/ransac.cu` -> RansacResult."""
+    kernels.require_cuda("ransac_refine", scores, inl, src_pts, dst_pts,
+                         corr_valid, n_valid)
+    b, h, m = inl.shape
+    dev = scores.device
+    T = torch.empty((b, 4, 4), dtype=torch.float32, device=dev)
+    mask = torch.empty((b, m), dtype=torch.bool, device=dev)
+    inliers = torch.empty((b,), dtype=torch.int32, device=dev)
+    fitness = torch.empty((b,), dtype=torch.float32, device=dev)
+    fn = kernels.entry("ransac.cu", "pct_ransac_refine", n_ptr=10, n_int=3,
+                       n_float=1)
+    kernels.check(fn(scores.data_ptr(), inl.data_ptr(), src_pts.data_ptr(),
+                     dst_pts.data_ptr(), corr_valid.data_ptr(),
+                     n_valid.data_ptr(), T.data_ptr(), mask.data_ptr(),
+                     inliers.data_ptr(), fitness.data_ptr(), b, h, m, thresh2,
+                     kernels.stream_ptr(dev)),
+                  "ransac_refine")
+    ransac_refine.launches += 1
+    return RansacResult(T, inliers, mask, fitness)
+
+
+ransac_refine.launches = 0
 
 
 def _squeeze(r: RansacResult) -> RansacResult:

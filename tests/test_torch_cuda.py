@@ -18,10 +18,14 @@ from pctpu_torch.ops import (pallas_ballgroup, pallas_banded, pallas_fps,
 from pctpu_torch.ops.ball_query import ball_query
 from pctpu_torch.ops.gather import group_points
 from pctpu_torch.ops.voxel import voxel_downsample_capped
-from pctpu_torch.register import icp
+from pctpu_torch.register import icp, ransac
 from pctpu_torch.register.icp import icp_fixed_iters_banded_mega_batch
+from pctpu_torch.register.procrustes import weighted_procrustes
 
 from grid_faces import faces_cloud
+from ransac_cases import CASES as RANSAC_CASES
+from ransac_cases import DIST as RANSAC_DIST
+from ransac_cases import refine_inputs, unsure_rows
 
 pytestmark = pytest.mark.cuda
 
@@ -1665,3 +1669,94 @@ def test_dp_train_step_nccl_world_of_one_matches_train_step(cuda):
         assert torch_ranks.dp_mismatches(world[how], one[how], one["names"],
                                          grad_tol=1e-2, loss_rtol=1e-5) == [], \
             how
+
+
+@pytest.mark.parametrize("case", RANSAC_CASES)
+@pytest.mark.parametrize("h", [1, 1024])
+@pytest.mark.parametrize("m", [3, 512, 700])
+@pytest.mark.parametrize("b", [1, 16, 64])
+def test_ransac_refine_kernel_matches_plain(cuda, b, m, h, case):
+    """RANSAC's select-and-refine kernel against `_select_refine_plain` on
+    the same CUDA tensors (`tests/ransac_cases.py`: zero inliers, the
+    fallback's identity and rank-2 branches, the Newton flip, tied
+    scores): R within 1e-5 a term and t within 1e-4 m (the kernel's sums
+    run in another order than PyTorch's and cuBLAS's); with tied scores,
+    R nearest the refit of the first tied row (torch.argmax's); the inlier
+    mask equal wherever no residual lies within 1e-4 m of the threshold;
+    counts and fitness from the mask; one launch a call; a second run
+    equal bit for bit."""
+    rng = np.random.default_rng([b, m, h, RANSAC_CASES.index(case)])
+    *arrays, thresh2 = refine_inputs(rng, b, h, m, case)
+    x = [_t(a, cuda) for a in arrays]
+    before = ransac.ransac_refine.launches
+    out = ransac.ransac_refine(*x, thresh2)
+    torch.cuda.synchronize()
+    assert ransac.ransac_refine.launches == before + 1
+    again = ransac._launch_refine(*x, thresh2)
+    torch.cuda.synchronize()
+    assert ransac.ransac_refine.launches == before + 2
+    assert all(torch.equal(u, v) for u, v in zip(out, again))
+    plain = ransac._select_refine_plain(*x, thresh2)
+    dR = (out.T[:, :3, :3] - plain.T[:, :3, :3]).abs().max()
+    dt = (out.T[:, :3, 3] - plain.T[:, :3, 3]).abs().max()
+    assert float(dR) <= 1e-5 and float(dt) <= 1e-4, (float(dR), float(dt))
+    assert torch.equal(out.T[:, 3], plain.T[:, 3])
+    sure = torch.from_numpy(~unsure_rows(
+        [out.T.cpu().numpy(), plain.T.cpu().numpy()], arrays[2], arrays[3],
+        RANSAC_DIST)).to(cuda)
+    assert torch.equal(out.inlier_mask[sure], plain.inlier_mask[sure])
+    assert torch.equal(out.inliers, out.inlier_mask.sum(1, dtype=torch.int32))
+    assert torch.equal(out.fitness, out.inliers / x[5])
+    if case in ("zero", "collinear"):
+        assert torch.equal(out.T[:, :3, :3],
+                           torch.eye(3, device=cuda).expand(b, 3, 3))
+    if case == "ties" and h > 1:
+        scores = arrays[0]
+        tied = np.stack([np.flatnonzero(r == r.max()) for r in scores])
+        ar = torch.arange(b, device=cuda)
+        d = torch.stack([
+            (out.T[:, :3, :3] - weighted_procrustes(
+                x[2], x[3], x[1][ar, _t(rows, cuda)].float())[0])
+            .abs().amax((1, 2)) for rows in tied.T], dim=1)
+        assert (tied[:, 0] > 0).all()
+        assert torch.equal(d[:, 0], d.min(1).values), d
+
+
+def test_ransac_batch_on_cuda_launches_the_refine_kernel(cuda, monkeypatch):
+    """`ransac_registration_batch(refine=True)` on CUDA tensors launches
+    the kernel once and never the plain chain; `refine=False` launches
+    nothing of it and keeps the best hypothesis' own pose."""
+    def refuse(*args):
+        raise AssertionError("plain chain called on CUDA tensors")
+    monkeypatch.setattr(ransac, "_select_refine_plain", refuse)
+    rng = np.random.default_rng(20)
+    src = rng.uniform(-20, 20, (2, 300, 3)).astype(np.float32)
+    c, s = np.cos(0.3), np.sin(0.3)
+    R = np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]], np.float32)
+    dst = src @ R.T + np.array([1.0, 2.0, 0.5], np.float32)
+    valid = torch.ones((2, 300), dtype=torch.bool, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    before = ransac.ransac_refine.launches
+    out = ransac.ransac_registration_batch(
+        _t(src, cuda), _t(dst, cuda), valid, ransac.generator_sampler(gen),
+        dist_thresh=0.5, num_hypotheses=256, m_cap=200)
+    torch.cuda.synchronize()
+    assert ransac.ransac_refine.launches == before + 1
+    assert out.inlier_mask.shape == (2, 200)
+    np.testing.assert_allclose(out.T[:, :3, :3].cpu().numpy(),
+                               np.stack([R, R]), atol=1e-5)
+    ransac.ransac_registration_batch(
+        _t(src, cuda), _t(dst, cuda), valid, ransac.generator_sampler(gen),
+        dist_thresh=0.5, num_hypotheses=256, refine=False)
+    assert ransac.ransac_refine.launches == before + 1
+
+
+def test_ransac_refine_rejects_mixed_devices_and_strides(cuda):
+    rng = np.random.default_rng(21)
+    x = [_t(a, cuda) for a in refine_inputs(rng, 2, 8, 16, "random")[:6]]
+    th = float(np.float32(RANSAC_DIST)) ** 2
+    with pytest.raises(ValueError, match="CUDA device"):
+        ransac.ransac_refine(*x[:5], x[5].cpu(), th)
+    strided = x[2].transpose(1, 2).contiguous().transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        ransac.ransac_refine(x[0], x[1], strided, *x[3:], th)

@@ -1,7 +1,8 @@
 """The port's registration stage against the JAX package: polar
 Procrustes, the triad rigid fit, batched RANSAC (fed the JAX package's own
-draws), the band layout and kernel K4 through both ICP entry points (plain
-version on the CPU, against the Pallas kernel in interpret mode)."""
+draws), RANSAC's select and refine on its degenerate cases, the band
+layout and kernel K4 through both ICP entry points (plain version on the
+CPU, against the Pallas kernel in interpret mode)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -9,6 +10,7 @@ import pytest
 import torch
 from scipy.spatial.transform import Rotation
 
+from pctpu.core import se3 as j_se3
 from pctpu.ops.pallas_banded import build_banded as j_build_banded
 from pctpu.register.icp import (
     icp_fixed_iters_banded_mega_batch as j_icp_mega,
@@ -23,8 +25,11 @@ from pctpu_torch.register.icp import (_pad_pow2,
                                       icp_refine_exact_mega_batch)
 from pctpu_torch.register.procrustes import (rotation_polar3,
                                              weighted_procrustes)
+from pctpu_torch.register import ransac
 from pctpu_torch.register.ransac import (_triad_rigid, generator_sampler,
                                          ransac_registration_batch)
+
+from ransac_cases import CASES, DIST, refine_inputs, unsure_rows
 
 
 def _t(x):
@@ -154,6 +159,82 @@ def test_ransac_generator_sampler_recovers_transform(rng):
                                     num_hypotheses=512)
     for i in range(b):
         np.testing.assert_allclose(out.T[i].numpy(), Ts[i], atol=1e-3)
+
+
+def _jax_select_refine(scores, inl, src, dst, valid, n_valid, thresh2):
+    """The JAX package's select, refine and result
+    (`pctpu/register/ransac.py:253-269`), on the same inputs."""
+    best = jnp.argmax(scores, axis=1)
+    w = jnp.take_along_axis(inl, best[:, None, None], axis=1)[:, 0]
+    R, t = jax.vmap(j_procrustes)(src, dst, w.astype(jnp.float32))
+    err2 = jnp.sum((jnp.einsum("bij,bmj->bmi", R, src,
+                               precision=jax.lax.Precision.HIGHEST)
+                    + t[:, None, :] - dst) ** 2, axis=-1)
+    mask = (err2 < thresh2) & valid
+    inliers = jnp.sum(mask, axis=1).astype(jnp.int32)
+    return (jax.vmap(j_se3.make_transform)(R, t), inliers, mask,
+            inliers / n_valid)
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_select_refine_plain_matches_jax(rng, case):
+    """`_select_refine_plain` against the JAX package's select and refine:
+    T within 1e-5 (R) and 1e-4 m (t), the inlier mask equal wherever no
+    residual lies within 1e-4 m of the threshold, counts and fitness
+    consistent with the mask. "collinear" and "zero" take the fallback's
+    identity, "coplanar" its rank-2 form, "reflection" the Newton flip;
+    "ties" the first of three rows sharing the maximum score."""
+    args = refine_inputs(rng, 4, 64, 200, case)
+    scores, inl, src, dst, valid, n_valid, thresh2 = args
+    ours = ransac._select_refine_plain(*(_t(x) for x in args[:6]), thresh2)
+    ref = _jax_select_refine(*(jnp.asarray(x) for x in args[:6]), thresh2)
+    T, Tr = ours.T.numpy(), np.asarray(ref[0])
+    np.testing.assert_allclose(T[:, :3, :3], Tr[:, :3, :3], atol=1e-5)
+    np.testing.assert_allclose(T[:, :3, 3], Tr[:, :3, 3], atol=1e-4)
+    np.testing.assert_array_equal(T[:, 3], Tr[:, 3])
+    sure = ~unsure_rows([T, Tr], src, dst, DIST)
+    mask, mask_r = ours.inlier_mask.numpy(), np.asarray(ref[2])
+    np.testing.assert_array_equal(mask[sure], mask_r[sure])
+    np.testing.assert_array_equal(ours.inliers.numpy(), mask.sum(1))
+    np.testing.assert_allclose(ours.fitness.numpy(), mask.sum(1) / n_valid,
+                               rtol=1e-7)
+    if case in ("zero", "collinear"):
+        np.testing.assert_array_equal(T[:, :3, :3],
+                                      np.broadcast_to(np.eye(3), (4, 3, 3)))
+    if case == "ties":
+        first = np.argmax(scores, axis=1)
+        assert (first > 0).all()
+        w = inl[np.arange(4), first].astype(np.float32)
+        R1, _ = weighted_procrustes(_t(src), _t(dst), _t(w))
+        np.testing.assert_array_equal(T[:, :3, :3], R1.numpy())
+
+
+@pytest.mark.parametrize("bad", ["scores_int64", "inl_uint8", "src_f64",
+                                 "valid_f32", "n_valid_i32", "inl_short_m",
+                                 "src_other_batch", "n_valid_2d",
+                                 "no_hypothesis"])
+def test_ransac_refine_rejects_bad_inputs(rng, bad):
+    """The wrapper raises on a mismatched shape or dtype before it picks a
+    path (here the CPU's plain chain)."""
+    x = dict(zip(("scores", "inl", "src", "dst", "valid", "n_valid"),
+                 (_t(a) for a in refine_inputs(rng, 2, 8, 16,
+                                               "random")[:6])))
+    change = {
+        "scores_int64": ("scores", lambda v: v.long()),
+        "inl_uint8": ("inl", lambda v: v.to(torch.uint8)),
+        "src_f64": ("src", lambda v: v.double()),
+        "valid_f32": ("valid", lambda v: v.float()),
+        "n_valid_i32": ("n_valid", lambda v: v.int()),
+        "inl_short_m": ("inl", lambda v: v[:, :, :-1]),
+        "src_other_batch": ("src", lambda v: v[:1]),
+        "n_valid_2d": ("n_valid", lambda v: v[:, None]),
+        "no_hypothesis": ("scores", lambda v: v[:, :0]),
+    }[bad]
+    x[change[0]] = change[1](x[change[0]])
+    if bad == "no_hypothesis":
+        x["inl"] = x["inl"][:, :0]
+    with pytest.raises(ValueError, match="ransac_refine"):
+        ransac.ransac_refine(*x.values(), float(np.float32(DIST)) ** 2)
 
 
 def test_build_banded_matches_jax(rng):

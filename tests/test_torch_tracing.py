@@ -27,8 +27,7 @@ TREE = {  # path -> occurrences in one call
     "register_pairs/sites": 1, "register_pairs/match": 1,
     "register_pairs/gather": 1, "register_pairs/ransac": 1,
     **{f"register_pairs/ransac/{s}": 1
-       for s in ("compact", "sample", "solve", "score", "select",
-                 "refine")},
+       for s in ("compact", "sample", "solve", "score", "refine")},
     "register_pairs/icp_voxel": 1, "register_pairs/icp_refine": 1,
     "register_pairs/icp_stats": 1}
 READERS = {"inputs_ms_per_pair.reg": "register_pairs/inputs",
@@ -146,6 +145,30 @@ def test_profiled_call_records_each_path(traced, path):
     assert counts.get(path) == TREE[path], (path, counts)
     assert totals[path] > 0
     assert sum(1 for n, _, _ in events if n == path) == TREE[path]
+
+
+@pytest.mark.parametrize("refine", [True, False])
+def test_ransac_spans_follow_refine(refine):
+    """`ransac_registration_batch` alone: with `refine` its select and
+    refine are one step under `ransac/refine` (on the card one kernel);
+    with `refine=False` the select has its own span `ransac/select`."""
+    from pctpu_torch.register.ransac import (generator_sampler,
+                                             ransac_registration_batch)
+    rng = np.random.default_rng(5)
+    src = rng.uniform(-10, 10, (2, 64, 3)).astype(np.float32)
+    dst = src + np.float32(0.5)
+    profiling.TRACE.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        ransac_registration_batch(
+            torch.from_numpy(src), torch.from_numpy(dst),
+            torch.ones((2, 64), dtype=torch.bool),
+            generator_sampler(torch.Generator().manual_seed(0)),
+            num_hypotheses=32, refine=refine)
+    counts = dict(profiling.TRACE.counts)
+    profiling.TRACE.reset()
+    last = "refine" if refine else "select"
+    assert counts == {"ransac": 1, **{f"ransac/{s}": 1 for s in (
+        "compact", "sample", "solve", "score", last)}}
 
 
 def test_profiled_call_records_no_other_path(traced):

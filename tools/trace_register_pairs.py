@@ -12,7 +12,10 @@ scan against its copy moved 35 deg), `RegistrationConfig()` defaults:
    launched it (joined by the launch's correlation id), every K4
    (`icp_mega_kernel`) launch required inside `register_pairs/icp_voxel`
    or `register_pairs/icp_refine`, every K1 (`nn1_kernel`) launch of the
-   stats inside `register_pairs/icp_stats`;
+   stats inside `register_pairs/icp_stats`; the kernels launched inside
+   `register_pairs/ransac/refine` (one: RANSAC's select-and-refine
+   kernel) and the rise of its counter `ransac_refine.launches` over the
+   call;
 4. `TRACE.report()` over as many profiled calls as the benchmark's traced
    run profiles (12 calls of 16 pairs, 4 of 64), and the host ms a call
    with the spans recording against the same calls with them silenced,
@@ -100,6 +103,7 @@ def main(argv=None):
     import torch
     import chip_smoke
     from pctpu_torch.core.cloud import PointCloud
+    from pctpu_torch.register import ransac
     from pctpu_torch.register.pipeline import (RegistrationConfig,
                                                register_pairs)
     from pctpu_torch.utils import profiling
@@ -137,8 +141,10 @@ def main(argv=None):
             off = call()
         profiling.TRACE.reset()
         logdir = OUT / "trace_register_pairs" / f"b{b}"
+        counted = ransac.ransac_refine.launches
         with profiling.profiler_trace(str(logdir)):
             on = call()
+        counted = ransac.ransac_refine.launches - counted
         equal = all(torch.equal(x, y) for x, y in zip(off, on))
         trace_file = max(logdir.glob("trace-*.json"),
                          key=lambda f: f.stat().st_mtime)
@@ -146,6 +152,7 @@ def main(argv=None):
         k4 = Counter(r for n, r in kmap if "icp_mega_kernel" in n)
         k1 = Counter(r for n, r in kmap if "nn1_kernel" in n)
         by_range = Counter(r for _, r in kmap)
+        in_refine = by_range.get("register_pairs/ransac/refine", 0)
         ok = (bool(k4) and bool(k1)
               and set(k4) <= {"register_pairs/icp_voxel",
                               "register_pairs/icp_refine"}
@@ -175,6 +182,7 @@ def main(argv=None):
             "kernels": len(kmap), "k4_ranges": dict(k4),
             "k1_ranges": dict(k1), "kernels_by_range": dict(by_range),
             "launches_in_place": ok,
+            "refine_kernels": in_refine, "ransac_refine_launches": counted,
             "spans_a_call": spans_a_call,
             "call_ms_spans_on": on_ms, "call_ms_spans_silent": silent_ms,
             "median_on_ms": statistics.median(on_ms),
@@ -182,6 +190,9 @@ def main(argv=None):
             "ms_a_pair": {k: v * 1e3 / (calls * b) for k, v in
                           profiling.TRACE.totals.items()},
             "report": profiling.TRACE.report()}
+        print(f"B {b}: {len(kmap)} kernels a call, {in_refine} inside "
+              f"ransac/refine, ransac_refine.launches +{counted}",
+              file=sys.stderr)
         print(f"B {b}, {calls} profiled calls:\n"
               + profiling.TRACE.report(), file=sys.stderr)
     OUT.mkdir(exist_ok=True)
@@ -191,6 +202,8 @@ def main(argv=None):
                       for k, v in res.items()}))
     return 0 if all(res[f"b{b}"]["launches_in_place"]
                     and res[f"b{b}"]["outputs_equal_on_off"]
+                    and res[f"b{b}"]["refine_kernels"] == 1
+                    and res[f"b{b}"]["ransac_refine_launches"] == 1
                     for b in PROFILED) else 1
 
 
