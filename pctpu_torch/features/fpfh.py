@@ -20,6 +20,7 @@ from pctpu_torch.ops.eigh3 import _cross
 from pctpu_torch.ops.gather import group_points
 from pctpu_torch.ops.knn import NeighborSet, radius_search
 from pctpu_torch.ops.normals import estimate_normals
+from pctpu_torch.utils.profiling import span
 
 N_BINS = 11
 
@@ -72,21 +73,28 @@ def fpfh(points: torch.Tensor, mask: Optional[torch.Tensor] = None,
          k_cap: int = 100, normal_k: int = 30) -> torch.Tensor:
     """points [N,3] -> FPFH descriptors [N,33]: descriptor radius 10, at
     most k_cap = 100 neighbours, normals from normal_k = 30 neighbours by
-    default."""
-    n = points.shape[0]
-    if mask is None:
-        mask = torch.ones((n,), dtype=torch.bool, device=points.device)
-    if normals is None:
-        normals = estimate_normals(points, mask=mask, k=normal_k)
-    nbrs = radius_search(points, points, radius, k_cap, db_mask=mask)
-    s = spfh(points, normals, nbrs)                              # [N,33]
-    rows = torch.arange(n, device=points.device)[:, None]
-    not_self = nbrs.valid & (nbrs.idx != rows)
-    dist = torch.sqrt(torch.clamp_min(nbrs.dist2, 1e-12))
-    wgt = torch.where(not_self, 1.0 / dist, 0.0)
-    k_eff = torch.clamp_min(not_self.sum(dim=1).float(), 1.0)
-    nbr_spfh = group_points(s, nbrs.idx)                         # [N,K,33]
-    f = s + torch.sum(nbr_spfh * wgt[..., None], dim=1) / k_eff[:, None]
-    blocks = f.reshape(n, 3, N_BINS)
-    sums = torch.clamp_min(blocks.sum(dim=-1, keepdim=True), 1e-12)
-    return (100.0 * blocks / sums).reshape(n, 3 * N_BINS)
+    default. Spans (`utils/profiling.py`): `fpfh`, and under it `normals`
+    (when computed here), `radius` (the neighbour lists) and `spfh` (the
+    histograms and their weighted sum)."""
+    with span("fpfh"):
+        n = points.shape[0]
+        if mask is None:
+            mask = torch.ones((n,), dtype=torch.bool, device=points.device)
+        if normals is None:
+            with span("normals"):
+                normals = estimate_normals(points, mask=mask, k=normal_k)
+        with span("radius"):
+            nbrs = radius_search(points, points, radius, k_cap, db_mask=mask)
+        with span("spfh"):
+            s = spfh(points, normals, nbrs)                      # [N,33]
+            rows = torch.arange(n, device=points.device)[:, None]
+            not_self = nbrs.valid & (nbrs.idx != rows)
+            dist = torch.sqrt(torch.clamp_min(nbrs.dist2, 1e-12))
+            wgt = torch.where(not_self, 1.0 / dist, 0.0)
+            k_eff = torch.clamp_min(not_self.sum(dim=1).float(), 1.0)
+            nbr_spfh = group_points(s, nbrs.idx)                 # [N,K,33]
+            f = s + torch.sum(nbr_spfh * wgt[..., None], dim=1) \
+                / k_eff[:, None]
+            blocks = f.reshape(n, 3, N_BINS)
+            sums = torch.clamp_min(blocks.sum(dim=-1, keepdim=True), 1e-12)
+            return (100.0 * blocks / sums).reshape(n, 3 * N_BINS)

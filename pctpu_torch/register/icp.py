@@ -31,6 +31,7 @@ from pctpu_torch.ops.knn import nearest
 from pctpu_torch.ops.pallas_banded import LUT_BINS, build_banded
 from pctpu_torch.register.procrustes import (procrustes_from_moments,
                                              weighted_procrustes)
+from pctpu_torch.utils.profiling import span
 
 BIG = 1e30
 
@@ -481,23 +482,30 @@ def icp_fixed_iters_banded_mega(src: torch.Tensor, src_mask: torch.Tensor,
                                 device: DeviceLike = None) -> torch.Tensor:
     """Whole-loop ICP of one pair: src/dst [N,3]/[M,3] -> T [4,4]. Two
     kernel-5 launches: `coarse_iters` windowed iterations, then
-    `polish_iters` exact ones (the window spanning the whole db)."""
+    `polish_iters` exact ones (the window spanning the whole db).
+
+    Spans (`utils/profiling.py`): `layout` (the pow-2 padding, the band
+    and axis sorts, the query layout), `coarse` and `polish` (one launch
+    each)."""
     dev = resolve_device(device)
     src, src_mask, dst, dst_mask, init_T = _on(dev, src, src_mask, dst,
                                                dst_mask, init_T)
     T = _eye((), dev) if init_T is None else init_T.float()
-    bdb, src3, spen, centers = _mega_layout(src[None], src_mask[None],
-                                            dst[None], dst_mask[None],
-                                            T[None], block, query_tile)
-    bdb = banded.first_db(bdb)
+    with span("layout"):
+        bdb, src3, spen, centers = _mega_layout(src[None], src_mask[None],
+                                                dst[None], dst_mask[None],
+                                                T[None], block, query_tile)
+        bdb = banded.first_db(bdb)
     nb = bdb.dbt4.shape[-1] // block
-    for iters, wb in ((coarse_iters, window_blocks), (polish_iters, nb)):
+    for name, iters, wb in (("coarse", coarse_iters, window_blocks),
+                            ("polish", polish_iters, nb)):
         if iters > 0:
-            T = mega.icp_mega(bdb, src3[0], spen[0], centers[0], T,
-                              iters=iters, dist_thresh=dist_thresh,
-                              block=block, window_blocks=wb,
-                              query_tile=query_tile,
-                              newton_iters=newton_iters)
+            with span(name):
+                T = mega.icp_mega(bdb, src3[0], spen[0], centers[0], T,
+                                  iters=iters, dist_thresh=dist_thresh,
+                                  block=block, window_blocks=wb,
+                                  query_tile=query_tile,
+                                  newton_iters=newton_iters)
     return T
 
 

@@ -294,18 +294,22 @@ def _front_end(src: PointCloud, dst: PointCloud, sampler: Sampler,
     one pair."""
 
     def preprocess(pc: PointCloud):
-        down = voxel_downsample(pc.points, pc.mask, cfg.voxel_size)
-        down, nv = _cap_uniform(down, cfg.downsample_capacity)
+        with span("voxel"):
+            down = voxel_downsample(pc.points, pc.mask, cfg.voxel_size)
+            down, nv = _cap_uniform(down, cfg.downsample_capacity)
         feats = fpfh(down.points, mask=down.mask, radius=cfg.feature_radius,
                      k_cap=cfg.feature_k_cap, normal_k=cfg.normal_k)
-        sites = keypoint_sites(down, cfg)
+        with span("sites"):
+            sites = keypoint_sites(down, cfg)
         return down, feats, sites, nv
 
     sdown, sfeat, s_sites, s_nv = preprocess(src)
     ddown, dfeat, d_sites, d_nv = preprocess(dst)
-    matches = match_features(sfeat, dfeat, src_mask=s_sites,
-                             dst_mask=d_sites, mutual=True)
-    dst_kp = gather_points(ddown.points, matches.dst_idx)
+    with span("match"):
+        matches = match_features(sfeat, dfeat, src_mask=s_sites,
+                                 dst_mask=d_sites, mutual=True)
+    with span("gather"):
+        dst_kp = gather_points(ddown.points, matches.dst_idx)
     rr = ransac_registration(sdown.points, dst_kp, matches.valid, sampler,
                              dist_thresh=cfg.ransac_dist,
                              num_hypotheses=cfg.ransac_hypotheses)
@@ -331,18 +335,21 @@ def _register_pair_impl(src: PointCloud, dst: PointCloud, sampler: Sampler,
     """The full coarse-to-fine chain for ONE pair."""
     rr, num_matches, s_nv, d_nv = _front_end(src, dst, sampler, cfg)
     if cfg.icp_backend == "while":
-        icp = icp_point_to_point(src.points, src.mask, dst.points, dst.mask,
-                                 init_T=rr.T, cfg=_icp_config(cfg),
-                                 device=dev)
+        with span("icp"):
+            icp = icp_point_to_point(src.points, src.mask, dst.points,
+                                     dst.mask, init_T=rr.T,
+                                     cfg=_icp_config(cfg), device=dev)
         icp_T, icp_iters, icp_rmse = icp.T, icp.iters, icp.rmse
     else:
-        icp_T = icp_fixed_iters_banded_mega(
-            src.points, src.mask, dst.points, dst.mask, init_T=rr.T,
-            coarse_iters=cfg.icp_fixed_coarse,
-            polish_iters=cfg.icp_fixed_polish,
-            dist_thresh=cfg.icp_dist_thresh, block=1024, window_blocks=1,
-            query_tile=1024, device=dev)
-        _, icp_rmse = _icp_stats(icp_T, src, dst, cfg)
+        with span("icp"):
+            icp_T = icp_fixed_iters_banded_mega(
+                src.points, src.mask, dst.points, dst.mask, init_T=rr.T,
+                coarse_iters=cfg.icp_fixed_coarse,
+                polish_iters=cfg.icp_fixed_polish,
+                dist_thresh=cfg.icp_dist_thresh, block=1024,
+                window_blocks=1, query_tile=1024, device=dev)
+        with span("icp_stats"):
+            _, icp_rmse = _icp_stats(icp_T, src, dst, cfg)
         icp_iters = torch.tensor(cfg.icp_fixed_coarse + cfg.icp_fixed_polish,
                                  dtype=torch.int32, device=dev)
     return RegistrationOutput(icp_T, rr.T, rr.fitness, icp_iters, icp_rmse,
@@ -359,14 +366,23 @@ def register_pair(src: PointCloud, dst: PointCloud,
 
     Runs on CUDA unless `device="cpu"`; raises without a card. RANSAC
     draws come from `sampler` if given, else from `generator` (a
-    `torch.Generator` on the run's device; seed 0 when omitted)."""
-    dev = resolve_device(device)
-    src, dst = src.to(dev), dst.to(dev)
-    if sampler is None:
-        if generator is None:
-            generator = torch.Generator(device=dev).manual_seed(0)
-        sampler = generator_sampler(generator)
-    return _register_pair_impl(src, dst, sampler, cfg, dev)
+    `torch.Generator` on the run's device; seed 0 when omitted).
+
+    Its stages are spans of `utils/profiling.py`, recorded while a torch
+    profiler records: `register_pair` and, under it, `inputs`, `voxel`
+    (the grid and the uniform cap), `sites`, `match`, `gather`, `icp` and
+    `icp_stats`, opened in this module, and `fpfh` (with `normals`, `radius`,
+    `spfh`), `ransac` and, under `icp`, `layout`, `coarse` and `polish`,
+    opened by the functions that do those stages."""
+    with span("register_pair"):
+        dev = resolve_device(device)
+        with span("inputs"):
+            src, dst = src.to(dev), dst.to(dev)
+        if sampler is None:
+            if generator is None:
+                generator = torch.Generator(device=dev).manual_seed(0)
+            sampler = generator_sampler(generator)
+        return _register_pair_impl(src, dst, sampler, cfg, dev)
 
 
 def result_row(idx1: int, idx2: int, T) -> tuple:

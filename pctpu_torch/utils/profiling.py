@@ -7,7 +7,9 @@ context, an accumulating host section timer, and the program's spans.
 
 Spans. The main path opens `span(name)` around its stages (in
 `register_pairs`: the clouds' copy to the card, the voxel grid, FPFH and
-its parts, matching, RANSAC and its parts, the three ICP stages). A span
+its parts, matching, RANSAC and its parts, the three ICP stages; in
+`register_pair` the same front end and kernel 5's layout, windowed and
+exact launches, then the stats). A span
 costs one check of the profiler's state while no torch profiler records,
 and does nothing else. While one records, a span opens the profiler
 range `pct:<path>`, `path` being the open spans' names joined by "/" on

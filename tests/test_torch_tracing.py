@@ -1,9 +1,9 @@
 """The program's spans (`pctpu_torch/utils/profiling.py`: `span`, `TRACE`,
 `Timer`) on the CPU: silent and free while no profiler records; inside
-`register_pairs` under a profiler, the whole tree of stages with its
-counts, nested on the host's clock and in the profiler's ranges, and the
-outputs unchanged bit for bit; the Chrome trace of `profiler_trace`; and
-the benchmark's four readers of the spans."""
+`register_pairs` and `register_pair` under a profiler, the whole tree of
+stages with its counts, nested on the host's clock and in the profiler's
+ranges, and the outputs unchanged bit for bit; the Chrome trace of
+`profiler_trace`; and the benchmark's six readers of the spans."""
 import itertools
 import json
 import sys
@@ -37,7 +37,22 @@ READERS = {"inputs_ms_per_pair.reg": "register_pairs/inputs",
 CFG = pipeline.RegistrationConfig(
     voxel_size=1.0, feature_radius=5.0, ransac_dist=1.5,
     ransac_hypotheses=256, icp_dist_thresh=2.0, downsample_capacity=512,
-    refine_subsample=512, stats_subsample=256)
+    refine_subsample=512, stats_subsample=256, icp_fixed_coarse=4,
+    icp_fixed_polish=2)
+SINGLE_TREE = {  # register_pair's paths -> occurrences in one call
+    "register_pair": 1, "register_pair/inputs": 1,
+    "register_pair/voxel": 2, "register_pair/fpfh": 2,
+    **{f"register_pair/fpfh/{s}": 2 for s in ("normals", "radius", "spfh")},
+    "register_pair/sites": 2, "register_pair/match": 1,
+    "register_pair/gather": 1, "register_pair/ransac": 1,
+    **{f"register_pair/ransac/{s}": 1
+       for s in ("compact", "sample", "solve", "score", "refine")},
+    "register_pair/icp": 1,
+    **{f"register_pair/icp/{s}": 1 for s in ("layout", "coarse", "polish")},
+    "register_pair/icp_stats": 1}
+SINGLE_READERS = {
+    "fpfh_dispatch_ms_per_pair.single": "register_pair/fpfh",
+    "icp_layout_ms_per_pair.single": "register_pair/icp/layout"}
 
 
 def _pairs():
@@ -71,11 +86,25 @@ def traced():
     outputs on, the spans' totals and counts, the `pct:` events as
     (name, start_ns, end_ns))."""
     src, dst = _pairs()
+    return _record(lambda: _call(src, dst))
+
+
+def _call_single(src, dst):
+    return pipeline.register_pair(
+        PointCloud(src.points[0], src.mask[0]),
+        PointCloud(dst.points[0], dst.mask[0]), CFG,
+        generator=torch.Generator().manual_seed(0), device="cpu")
+
+
+def _record(call):
+    """One call with no profiler, one under a CPU profiler: (outputs off,
+    outputs on, the spans' totals and counts, the `pct:` events as
+    (name, start_ns, end_ns))."""
     profiling.TRACE.reset()
-    off = _call(src, dst)
+    off = call()
     assert not profiling.TRACE.totals
     with profile(activities=[ProfilerActivity.CPU]) as prof:
-        on = _call(src, dst)
+        on = call()
     totals = dict(profiling.TRACE.totals)
     counts = dict(profiling.TRACE.counts)
     events = [(e.name()[4:], e.start_ns(), e.start_ns() + e.duration_ns())
@@ -83,6 +112,14 @@ def traced():
               if e.name().startswith("pct:")]
     profiling.TRACE.reset()
     return off, on, totals, counts, events
+
+
+@pytest.fixture(scope="module")
+def traced_single():
+    """`register_pair` on the first of `_pairs()`, as `traced` records
+    `register_pairs` (kernel 5 at 4 windowed and 2 exact iterations)."""
+    src, dst = _pairs()
+    return _record(lambda: _call_single(src, dst))
 
 
 def test_span_off_is_the_shared_noop_and_calls_no_range(monkeypatch):
@@ -175,15 +212,13 @@ def test_profiled_call_records_no_other_path(traced):
     assert set(traced[3]) == set(TREE)
 
 
-def test_parent_total_covers_its_children(traced):
-    totals = traced[2]
-    for path in TREE:
-        kids = [p for p in TREE if p.rpartition("/")[0] == path]
+def _parents_cover_children(totals, tree):
+    for path in tree:
+        kids = [p for p in tree if p.rpartition("/")[0] == path]
         assert totals[path] >= sum(totals[k] for k in kids), path
 
 
-def test_child_ranges_lie_inside_their_parents(traced):
-    events = traced[4]
+def _children_inside_parents(events):
     for name, s, e in events:
         parent = name.rpartition("/")[0]
         if not parent:
@@ -193,10 +228,46 @@ def test_child_ranges_lie_inside_their_parents(traced):
         assert len(holders) == 1, (name, s, e)
 
 
-def test_outputs_equal_with_the_profiler_on_and_off(traced):
-    off, on = traced[0], traced[1]
+def _outputs_equal(off, on):
     for name, a, b in zip(off._fields, off, on):
         assert torch.equal(a, b), name
+
+
+def test_parent_total_covers_its_children(traced):
+    _parents_cover_children(traced[2], TREE)
+
+
+def test_child_ranges_lie_inside_their_parents(traced):
+    _children_inside_parents(traced[4])
+
+
+def test_outputs_equal_with_the_profiler_on_and_off(traced):
+    _outputs_equal(traced[0], traced[1])
+
+
+@pytest.mark.parametrize("path", sorted(SINGLE_TREE))
+def test_register_pair_records_each_path(traced_single, path):
+    _, _, totals, counts, events = traced_single
+    assert counts.get(path) == SINGLE_TREE[path], (path, counts)
+    assert totals[path] > 0
+    assert sum(1 for n, _, _ in events if n == path) == SINGLE_TREE[path]
+
+
+def test_register_pair_records_no_other_path(traced_single):
+    assert set(traced_single[3]) == set(SINGLE_TREE)
+
+
+def test_register_pair_parent_total_covers_its_children(traced_single):
+    _parents_cover_children(traced_single[2], SINGLE_TREE)
+
+
+def test_register_pair_child_ranges_lie_inside_their_parents(traced_single):
+    _children_inside_parents(traced_single[4])
+
+
+def test_register_pair_outputs_equal_with_the_profiler_on_and_off(
+        traced_single):
+    _outputs_equal(traced_single[0], traced_single[1])
 
 
 def test_profiler_trace_writes_the_program_ranges(tmp_path):
@@ -334,4 +405,55 @@ def test_readers_find_nothing_without_a_trace_or_a_span(monkeypatch):
     profiling.TRACE.reset()
     monkeypatch.delattr(profiling, "TRACE")              # a program
     assert _reader("ransac_dispatch_ms_per_pair.reg").read(  # without spans
+        traced_run) is None
+
+
+@pytest.fixture(scope="module")
+def traced_single_cell():
+    """A traced run of `reg-single-35deg` on the CPU at 2,048 points a
+    cloud, kernel 5 at 4 windowed and 1 exact iterations, one profiled
+    call."""
+    from portbench.common.harness import cell_files, run_cell
+    config = cell_files("reg-single-35deg")[1]
+    rc = {**config["registration_config"], "icp_fixed_coarse": 4,
+          "icp_fixed_polish": 1}
+    profiling.TRACE.reset()
+    res = run_cell("reg-single-35deg", 2**31 + 93, 0.0, True, device="cpu",
+                   traffic_overrides=dict(pool_pairs=1, warmup_calls=1,
+                                          check_calls=1, trace_calls=1),
+                   config_overrides=dict(scan_points=2048,
+                                         registration_config=rc),
+                   log=lambda m: None)
+    totals = dict(profiling.TRACE.totals)
+    profiling.TRACE.reset()
+    return res, totals
+
+
+@pytest.mark.parametrize("name", sorted(SINGLE_READERS))
+def test_single_reader_reads_its_span_in_a_traced_run(traced_single_cell,
+                                                      name):
+    res, totals = traced_single_cell
+    v = res["metrics"][name]
+    assert v["unit"] == "ms" and v["value"] > 0
+    # the span's host ms over the profiled call's one pair
+    assert v["value"] == pytest.approx(totals[SINGLE_READERS[name]] * 1e3)
+
+
+def test_single_readers_find_nothing_without_a_trace_or_a_span(monkeypatch):
+    from portbench.common.harness import RunView
+
+    class Trace:
+        units = 1
+    profiling.TRACE.reset()
+    traced_run = RunView("pairs", 1, 1, [0.1], 0.1, 1.0, Trace())
+    untraced = RunView("pairs", 1, 1, [0.1], 0.1, 1.0, None)
+    for name in SINGLE_READERS:
+        assert _reader(name).read(untraced) is None
+        assert _reader(name).read(traced_run) is None    # never ran
+    profiling.TRACE.add("register_pair/icp/layout", 0.003)
+    assert _reader("icp_layout_ms_per_pair.single").read(
+        traced_run) == pytest.approx(3.0)
+    profiling.TRACE.reset()
+    monkeypatch.delattr(profiling, "TRACE")              # a program
+    assert _reader("icp_layout_ms_per_pair.single").read(  # without spans
         traced_run) is None

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""The program's spans in `register_pairs` on one NVIDIA GPU, at the
-shapes of whole HDL-64E scans (`chip_smoke.py`'s synthetic 124,668-point
-scan against its copy moved 35 deg), `RegistrationConfig()` defaults:
+"""The program's spans in `register_pairs` (or `register_pair`) on one
+NVIDIA GPU, at the shapes of whole HDL-64E scans (`chip_smoke.py`'s
+synthetic 124,668-point scan against its copy moved 35 deg),
+`RegistrationConfig()` defaults:
 
 1. what a span costs on the host: with no profiler recording (the shared
    no-op) and with one recording (a `pct:` range and a `TRACE` entry),
@@ -26,6 +27,15 @@ scan against its copy moved 35 deg), `RegistrationConfig()` defaults:
 Prints one JSON line and writes it, with the reports, to
 `chiprun_out/trace_register_pairs.json`; the Chrome traces of step 3 go
 to `chiprun_out/trace_register_pairs/`.
+
+With `--entry register_pair` the same for the single pair (one whole scan
+against its moved copy a call): the span costs, outputs on = off, one call's
+Chrome trace with every kernel-5 (`icp_mega_kernel`) launch required inside
+`register_pair/icp/coarse` or `register_pair/icp/polish` and every K1
+(`nn1_kernel`) launch inside `register_pair/icp_stats`, and over 12
+profiled calls `TRACE.report()` and the launches a call that kernel 5's
+and K1's counters (`icp_mega.launches`, `nn1.launches`) count (2 and 1
+expected); written to `chiprun_out/trace_register_pair.json`.
 """
 import argparse
 import json
@@ -95,9 +105,80 @@ def launch_map(trace_file):
     return out
 
 
+def trace_single(args, res, torch, profiling, scan, rng):
+    """`--entry register_pair`: res gains the single pair's readings; True
+    when every check held."""
+    import chip_smoke
+    from pctpu_torch.core.cloud import PointCloud
+    from pctpu_torch.ops import pallas_icp_mega, pallas_nn
+    from pctpu_torch.register.pipeline import (RegistrationConfig,
+                                               register_pair)
+    dev = torch.device("cuda")
+    src, dst, _ = chip_smoke.make_pairs(scan, rng, 1, len(scan),
+                                        chip_smoke.ROT_DEG)
+    mask = torch.ones(src.shape[1], dtype=torch.bool)
+    s_pc = PointCloud(torch.from_numpy(src[0]), mask)
+    d_pc = PointCloud(torch.from_numpy(dst[0]), mask)
+    cfg = RegistrationConfig()
+
+    def call():
+        out = register_pair(s_pc, d_pc, cfg, generator=torch.Generator(
+            device=dev).manual_seed(args.seed), device=dev)
+        torch.cuda.synchronize()
+        return out
+
+    for _ in range(2):
+        off = call()
+    profiling.TRACE.reset()
+    logdir = OUT / "trace_register_pair"
+    with profiling.profiler_trace(str(logdir)):
+        on = call()
+    equal = all(torch.equal(x, y) for x, y in zip(off, on))
+    trace_file = max(logdir.glob("trace-*.json"),
+                     key=lambda f: f.stat().st_mtime)
+    kmap = launch_map(trace_file)
+    k5 = Counter(r for n, r in kmap if "icp_mega_kernel" in n)
+    k1 = Counter(r for n, r in kmap if "nn1_kernel" in n)
+    in_place = (k5 == Counter({"register_pair/icp/coarse": 1,
+                               "register_pair/icp/polish": 1})
+                and k1 == Counter({"register_pair/icp_stats": 1}))
+    calls = PROFILED[16]
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    profiling.TRACE.reset()
+    n5, n1 = pallas_icp_mega.icp_mega.launches, pallas_nn.nn1.launches
+    ms = []
+    with torch.profiler.profile(activities=acts):
+        for _ in range(calls):
+            t = time.perf_counter()
+            call()
+            ms.append((time.perf_counter() - t) * 1e3)
+    res["register_pair"] = {
+        "calls_profiled": calls, "outputs_equal_on_off": equal,
+        "kernels": len(kmap), "k5_ranges": dict(k5), "k1_ranges": dict(k1),
+        "kernels_by_range": dict(Counter(r for _, r in kmap)),
+        "launches_in_place": in_place,
+        "k5_launches_a_call": (pallas_icp_mega.icp_mega.launches - n5)
+        / calls,
+        "k1_launches_a_call": (pallas_nn.nn1.launches - n1) / calls,
+        "call_ms": ms, "median_call_ms": statistics.median(ms),
+        "spans_a_call": sum(profiling.TRACE.counts.values()) / calls,
+        "ms_a_call": {k: v * 1e3 / calls for k, v in
+                      profiling.TRACE.totals.items()},
+        "report": profiling.TRACE.report()}
+    r = res["register_pair"]
+    print(f"register_pair, {calls} profiled calls: kernel 5 "
+          f"{r['k5_launches_a_call']} and K1 {r['k1_launches_a_call']} "
+          f"launches a call\n" + r["report"], file=sys.stderr)
+    return (equal and in_place and r["k5_launches_a_call"] == 2
+            and r["k1_launches_a_call"] == 1)
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--entry", choices=("register_pairs", "register_pair"),
+                   default="register_pairs")
     args = p.parse_args(argv)
 
     import torch
@@ -121,6 +202,15 @@ def main(argv=None):
            "spans": span_costs(profiling, torch)}
     rng = np.random.default_rng([args.seed, 9])
     scan = chip_smoke.lidar_scan(rng)
+    if args.entry == "register_pair":
+        ok = trace_single(args, res, torch, profiling, scan, rng)
+        OUT.mkdir(exist_ok=True)
+        (OUT / "trace_register_pair.json").write_text(
+            json.dumps(res, indent=1))
+        print(json.dumps({k: ({f: x for f, x in v.items() if f != "report"}
+                              if k == "register_pair" else v)
+                          for k, v in res.items()}))
+        return 0 if ok else 1
     cfg = RegistrationConfig()
 
     for b, calls in PROFILED.items():
