@@ -17,7 +17,9 @@ hand-written kernel against its plain PyTorch version:
      K6 `nearest_banded`, K7 `icp_moments_banded`, K8
      `icp_moments_banded_v2`;
   P6 `register_pair` on one 35 degree pair of P1, default config:
-     kernel 5 and K1;
+     kernel 5, K1 and kernel V `voxel_run_means` (the voxel centroids,
+     once a cloud; also timed on P3's two whole scans, the benchmark's
+     single-pair shapes);
   P7 `cls-msg` serving at the MODELNET40_CLS_MSG shapes (B 32, 4,096
      points x 6 channels, 40 classes): `evaluate` over 4 batches
      ("requests"), port-initialised weights from --seed; per forward
@@ -177,6 +179,10 @@ Phases:
      residual lies within 1e-4 m of the threshold, on every pair (of
      P13's and P14's closure candidates, on those that float32 resolves:
      `check_refine`);
+     `voxel_run_means` on every launch of P6, P13, P14 and P23: equal bit
+     for bit to a host float64 in-order sum of each run, rounded once,
+     repeating bit for bit, and within one float32 ulp of its plain version
+     (near 0, the float64 ulp its prefixes carry: `check_voxel`);
      K2 equal to
      its plain version and K3 repeating bit for bit on every launch of
      P1, P13-P15 and the kernel-9 phase, each launch's device time from a
@@ -201,10 +207,10 @@ Phases:
      launch's bound, the candidates its scan tests, `ball_group_plan`'s
      launch; every recorded launch's idx and rows equal to the plain
      version's);
-  4. one JSON line of per-kernel numbers (the 14 kernels, `ransac_refine`
-     and kernel 12's backward, `ball_group_vjp`, kernel 14's entry on the
-     training paths), the card's line, and last the line {"ok": true, "device":
-     {...}}.
+  4. one JSON line of per-kernel numbers (the 14 kernels, `ransac_refine`,
+     `voxel_run_means` and kernel 12's backward, `ball_group_vjp`, kernel
+     14's entry on the training paths), the card's line, and last the
+     line {"ok": true, "device": {...}}.
 
 Any failure raises: the exit code is nonzero and no result line is
 printed. Without CUDA, or outside a checkout of the repo, it exits with 2.
@@ -242,7 +248,8 @@ BANDED = dict(iters=30, dist_thresh=5.0, block=2048, window_blocks=2,
 KERNELS = ("nn1", "spfh", "wsum", "icp_mega_batch", "icp_mega",
            "nearest_banded", "icp_moments_banded", "icp_moments_banded_v2",
            "moments", "fps_pallas", "fps_pallas_batched", "ball_group",
-           "gather_rows", "scatter_add_rows", "ransac_refine")
+           "gather_rows", "scatter_add_rows", "ransac_refine",
+           "voxel_run_means")
 # K4 / kernel 5: ms of each path's recorded launches in the kernel's first
 # design, one CTA per pair (PERF.md §6; H100 80GB HBM3, 700 W), None where
 # that design was not timed on the path; and the paths whose every launch
@@ -961,25 +968,69 @@ def check_refine(ransac, calls, torch, strict=False):
     return out
 
 
+def check_voxel(voxel, calls, torch):
+    """`voxel_run_means` (kernel V) on recorded launches: each voxel's
+    centroid equal bit for bit to a host float64 sum of its run in row
+    order, rounded once (`tests/voxel_runs.py:in_order_means`), a second
+    launch equal bit for bit, and the plain version (`_run_means_plain`,
+    float64 cumsum differences) on the same CUDA tensors within one
+    float32 ulp, near 0 within the float64 ulp of the column's sum of |x|
+    that its prefixes carry (`plain_gap_ok`). Returns the launches
+    checked, the voxels, the rows that differ from the plain version and
+    the largest gap to it."""
+    from voxel_runs import in_order_means, plain_gap_ok
+    out = dict(checked=0, voxels=0, rows_differing=0, max_abs_err=0.0)
+    for k, args in enumerate(calls):
+        got = voxel._launch_run_means(*args)
+        again = voxel._launch_run_means(*args)
+        plain = voxel._run_means_plain(*args[:4])
+        torch.cuda.synchronize()
+        nv = int(args[4])
+        g, p = got[:nv].cpu().numpy(), plain[:nv].cpu().numpy()
+        need(torch.equal(got, again), "voxel_run_means repeat", k)
+        need(bool((g == in_order_means(*args)).all()),
+             "voxel_run_means vs the in-order sums", k)
+        need(plain_gap_ok(p, g, args[0], args[1]), "voxel_run_means vs plain",
+             k, float(np.abs(g - p).max()) if nv else 0.0)
+        out.update(checked=k + 1, voxels=out["voxels"] + nv,
+                   rows_differing=out["rows_differing"]
+                   + int((g != p).any(1).sum()),
+                   max_abs_err=max(out["max_abs_err"], float(
+                       np.abs(g - p).max()) if nv else 0.0))
+    return out
+
+
+def voxel_work(args):
+    """(ops, bytes) of one `voxel_run_means` launch: 3 adds and a count a
+    valid row, 3 divisions a voxel; each valid row's point and two flags
+    read once, the nv run starts read once, N rows written."""
+    ps, ms = args[0], args[1]
+    valid, nv = int(ms.sum()), int(args[4])
+    return (4.0 * valid + 3.0 * nv,
+            valid * (12 + 2) + nv * 8 + ps.shape[0] * 12)
+
+
 @contextlib.contextmanager
 def recording_k1_k4(pallas_nn, pallas_fpfh, mega):
-    """Records the inputs of every K1-K4 and `ransac_refine` launch of a
-    run (`Recorder`)."""
+    """Records the inputs of every K1-K4, `ransac_refine` and
+    `voxel_run_means` launch of a run (`Recorder`)."""
+    from pctpu_torch.ops import voxel
     from pctpu_torch.register import ransac
     with Recorder(pallas_nn, "nn1") as r_nn, \
             Recorder(pallas_fpfh, "spfh") as r_spfh, \
             Recorder(pallas_fpfh, "wsum") as r_wsum, \
             Recorder(mega, "_launch_icp_mega") as r_k4, \
-            Recorder(ransac, "ransac_refine") as r_rr:
+            Recorder(ransac, "ransac_refine") as r_rr, \
+            Recorder(voxel, "voxel_run_means") as r_v:
         yield dict(nn1=r_nn, spfh=r_spfh, wsum=r_wsum, icp_mega=r_k4,
-                   ransac_refine=r_rr)
+                   ransac_refine=r_rr, voxel_run_means=r_v)
 
 
 def check_path_kernels(mods, rec, torch, strict=True):
-    """K1-K4 and `ransac_refine` vs plain on every launch of one path's
-    run, at check_nn1's, check_fpfh's, check_mega's and check_refine's
-    tolerances (`strict`: check_refine's on every pair). Returns what was
-    checked and the worst errors."""
+    """K1-K4, `ransac_refine` and `voxel_run_means` vs plain on every
+    launch of one path's run, at check_nn1's, check_fpfh's, check_mega's,
+    check_refine's and check_voxel's tolerances (`strict`: check_refine's
+    on every pair). Returns what was checked and the worst errors."""
     calls = rec["nn1"].calls
     for a in calls:
         check_nn1(mods, a, torch, timed=False)
@@ -1002,6 +1053,10 @@ def check_path_kernels(mods, rec, torch, strict=True):
         from pctpu_torch.register import ransac
         out["ransac_refine"] = check_refine(ransac, rec["ransac_refine"].calls,
                                             torch, strict)
+    if rec["voxel_run_means"].calls:
+        from pctpu_torch.ops import voxel
+        out["voxel_run_means"] = check_voxel(
+            voxel, rec["voxel_run_means"].calls, torch)
     return out
 
 
@@ -1012,7 +1067,8 @@ def kernels_line(name, res):
             f"{res['nn1']['max_abs_err']:.1e}" + "".join(
                 f", {k} {res[k]['checked']} max |err| "
                 f"{res[k]['max_abs_err']:.1e}"
-                for k in ("spfh", "wsum", "icp_mega_batch", "ransac_refine")
+                for k in ("spfh", "wsum", "icp_mega_batch", "ransac_refine",
+                          "voxel_run_means")
                 if k in res))
 
 
@@ -1447,11 +1503,12 @@ def odometry_launches(out, cfg, n_frames):
     candidates once per ICP iteration (all candidates in lockstep) and
     once for the fitness; round 0's global inits add `register_pairs`
     (K1 for its stats, K2 and K3 per cloud batch, RANSAC's select and
-    refine, K4 for the voxel ICP and the exact refine)."""
+    refine, K4 for the voxel ICP and the exact refine); kernel V once a
+    frame, for its voxel centroids."""
     cands = out["closure_candidates"]
     nn = (n_frames - 1) * cfg.icp_iters + sum(
         cfg.icp_iters + 1 for c in cands if c)
-    want = {"nn1": nn}
+    want = {"nn1": nn, "voxel_run_means": n_frames}
     if cands[0] and cfg.closure_init == "global":
         want["nn1"] += 1
         want.update(spfh=2, wsum=2, icp_mega_batch=2, ransac_refine=1)
@@ -1642,7 +1699,8 @@ def registration_options(paths, mods, src, dst, gts, pm, torch):
     with recording_k1_k4(mods["pallas_nn"], mods["pallas_fpfh"],
                          mods["pallas_icp_mega"]) as rec:
         res = paths.run("register_pair_iss", pair_run,
-                        {"icp_mega": 2, "nn1": 1, "ransac_refine": 1})
+                        {"icp_mega": 2, "nn1": 1, "ransac_refine": 1,
+                         "voxel_run_means": 2})
     rte, rre = gate("P23 register_pair iss", res.T, gts[0], se3, torch)
     checks["pair"] = check_path_kernels(mods, rec, torch)
     out["register_pair_iss"] = dict(
@@ -2897,7 +2955,8 @@ def main(argv=None):
                "gather_rows": pallas_gather.gather_rows_pallas,
                "scatter_add_rows": pallas_gather.scatter_add_rows_pallas,
                "moments": pallas_fpfh.moments,
-               "ransac_refine": ransac.ransac_refine}
+               "ransac_refine": ransac.ransac_refine,
+               "voxel_run_means": voxel.voxel_run_means}
     paths = Paths(counted, torch)
     report, rows, metrics = {}, {}, {}
 
@@ -3166,9 +3225,11 @@ def main(argv=None):
         return pipeline.register_pair(*one, cfg=cfg, generator=gen)
     p6_run()
     with Recorder(mega, "_launch_icp_mega") as r_k5p6, \
-            Recorder(pallas_nn, "nn1") as r_nn_p6:
+            Recorder(pallas_nn, "nn1") as r_nn_p6, \
+            Recorder(voxel, "voxel_run_means") as r_v6:
         out6 = paths.run("register_pair", p6_run,
-                         {"icp_mega": 2, "nn1": 1, "ransac_refine": 1})
+                         {"icp_mega": 2, "nn1": 1, "ransac_refine": 1,
+                          "voxel_run_means": 2})
     need(out6.T.shape == (4, 4) and torch.isfinite(out6.icp_rmse))
     rte, rre = gate("register_pair", out6.T, gts[0], se3, torch)
     p6_ms = cuda_ms(p6_run, reps=3, warmup=0)
@@ -3185,6 +3246,36 @@ def main(argv=None):
     print(f"P6 register_pair ({N_POINTS} pts @ {ROT_DEG} deg): RTE {rte:.4f} "
           f"m, RRE {rre:.4f} deg; {p6_ms:.1f} ms per call; T vs plain "
           f"{metrics['register_pair']['loop_err_vs_plain']:.1e}")
+    v6 = check_voxel(voxel, r_v6.calls, torch)
+    # kernel V at the benchmark's single-pair shapes: P3's two whole scans
+    # at RegistrationConfig's 2 m leaf
+    with Recorder(voxel, "voxel_run_means") as r_vs:
+        for c in (s4, d4):
+            voxel.voxel_downsample(c, m4, cfg.voxel_size)
+        torch.cuda.synchronize()
+    vs = check_voxel(voxel, r_vs.calls, torch)
+    vals = [torch.cat([torch.where(a[1][:, None], a[0], 0.0),
+                       a[1][:, None].float()], dim=1).double()
+            for a in r_vs.calls]
+    work = [voxel_work(a) for a in r_vs.calls]
+    bms, by = bound(sum(w[1] for w in work), sum(w[0] for w in work))
+    rows["voxel_run_means"] = dict(
+        max_abs_err=max(v6["max_abs_err"], vs["max_abs_err"]),
+        ms=graph_ms([lambda a=a: voxel._launch_run_means(*a)
+                     for a in r_vs.calls]),
+        plain_ms=cuda_ms(lambda: [voxel._run_means_plain(*a[:4])
+                                  for a in r_vs.calls], reps=3),
+        bound_ms=bms, bound_by=by,
+        library_ms=cuda_ms(lambda: [torch.cumsum(v, dim=0) for v in vals],
+                           reps=3),
+        p6=v6, whole_scans=vs)
+    rv = rows["voxel_run_means"]
+    print(f"   voxel_run_means: P6's 2 launches ({v6['voxels']} voxels, "
+          f"{v6['rows_differing']} rows differ from plain, max |err| "
+          f"{v6['max_abs_err']:.1e}); at P3's two whole scans "
+          f"({vs['voxels']} voxels) {rv['ms']:.4f} ms as device time, "
+          f"plain {rv['plain_ms']:.3f} ms, the cumsum alone "
+          f"{rv['library_ms']:.3f} ms, bound {rv['bound_ms'] * 1e3:.2f} us")
 
     # ---- P7, P8 classification serving: kernels 11, 12 -------------------
     mark("P7, P8 classification serving")
@@ -4545,6 +4636,9 @@ def main(argv=None):
         "ransac_refine": ("pctpu_torch/csrc/ransac.cu",
                           "no kernel: pctpu/register/ransac.py's select "
                           "and refine, XLA ops"),
+        "voxel_run_means": ("pctpu_torch/csrc/voxel.cu",
+                            "no kernel: pctpu/ops/voxel.py:66 segment_sum, "
+                            "XLA"),
     }
     # kernel 12's backward is kernel 14's entry (`_bg_bwd`): its launches
     # are kernel 14's on the training paths, its times P10's launch
@@ -4580,7 +4674,8 @@ def main(argv=None):
                        "scatter_add_rows: one P10 step's launch, kernel "
                        "12's backward; moments: its 2 launches in the "
                        "kernel-9 phase, as device time; ransac_refine: "
-                       "P1's launch); launches: summed "
+                       "P1's launch; voxel_run_means: P3's two whole "
+                       "scans' launches, as device time); launches: summed "
                        "over the paths")
     phases = {name: round(t1 - t0, 1)
               for (name, t0), (_, t1) in zip(marks, marks[1:])}

@@ -8,13 +8,18 @@ cap = N).
 carries the cell-relative coordinates and the mask as payload; per-voxel sums are CUMSUM
 DIFFERENCES at run boundaries; when more than `cap` voxels exist a uniform
 stride over the cell-sorted voxel ids picks the kept ones. The output is
-cell-lexsorted (x-major), which the x-band FPFH relies on."""
+cell-lexsorted (x-major), which the x-band FPFH relies on.
+
+`voxel_downsample`'s centroids: `voxel_run_means`, kernel V
+(`csrc/voxel.cu`) on CUDA tensors, its plain version `_run_means_plain`
+(float64 cumsum differences) on CPU tensors."""
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
 
+from pctpu_torch import kernels
 from pctpu_torch.core.cloud import PointCloud
 from pctpu_torch.ops.gather import _flat_row_gather
 from pctpu_torch.utils.profiling import span
@@ -113,9 +118,9 @@ def voxel_downsample(points: torch.Tensor, mask: torch.Tensor, leaf: float,
     (capacity N, valid voxels compacted to the front in (x, y, z) cell
     order).
 
-    method "centroid": each voxel's mean. The reference's `segment_sum` is
-    a cumsum difference over the voxel's contiguous run in f64, rounded
-    once to f32, which is deterministic on the card.
+    method "centroid": each voxel's mean, summed over the voxel's
+    contiguous run in f64 and rounded once to f32 (`voxel_run_means`),
+    which is deterministic on the card.
     method "random": a uniform member. `prio` [N] int32 (default: drawn in
     [0, 2^31 - 1) from `generator`, itself seeded 0 on the points' device
     when None) is the least significant key of the stable sort, and each
@@ -154,26 +159,80 @@ def voxel_downsample(points: torch.Tensor, mask: torch.Tensor, leaf: float,
     idx = torch.arange(n, device=dev)
     out_mask = idx < nv
 
-    def by_voxel(flag):   # row index of each voxel's flagged row
-        slot = torch.where(flag, seg, n)     # slot n collects the rest
-        return torch.zeros(n + 1, dtype=torch.long, device=dev).scatter_(
-            0, slot, idx)[:n]
-
-    s_v = by_voxel(new_run)
+    s_v = _by_voxel(new_run, seg, idx)
     if method == "random":
         out_pts = ps[s_v]
     else:
-        nxt_start = torch.cat([new_run[1:] | ~ms[1:],
-                               torch.ones(1, dtype=torch.bool, device=dev)])
-        e_v = by_voxel(ms & nxt_start)
-        vals = torch.cat([torch.where(ms[:, None], ps, 0.0),
-                          ms[:, None].float()], dim=1).double()
-        csum = torch.cumsum(vals, dim=0)
-        sums = csum[e_v] - torch.where((s_v > 0)[:, None],
-                                       csum[torch.clamp_min(s_v - 1, 0)], 0.0)
-        out_pts = (sums[:, :3] / torch.clamp_min(sums[:, 3:], 1.0)).float()
+        out_pts = voxel_run_means(ps, ms, new_run, s_v, nv)
     out_pts = torch.where(out_mask[:, None], out_pts, out_pts[:1])
     return PointCloud(points=out_pts, mask=out_mask)
+
+
+def _by_voxel(flag: torch.Tensor, seg: torch.Tensor,
+              idx: torch.Tensor) -> torch.Tensor:
+    """Row index of each voxel's flagged row ([N] int64; 0 past the last
+    voxel). `seg` [N] is each row's voxel id, `idx` [N] the row ids."""
+    n = flag.shape[0]
+    slot = torch.where(flag, seg, n)     # slot n collects the rest
+    return torch.zeros(n + 1, dtype=torch.long, device=flag.device).scatter_(
+        0, slot, idx)[:n]
+
+
+def voxel_run_means(ps: torch.Tensor, ms: torch.Tensor,
+                    new_run: torch.Tensor, s_v: torch.Tensor,
+                    nv: torch.Tensor) -> torch.Tensor:
+    """Each voxel's centroid from the cell-sorted points. ps [N,3] f32,
+    ms [N] bool (valid rows first), new_run [N] bool (a valid row whose
+    cell differs from the row before), s_v [N] int64 (voxel v's first
+    row), nv [] int64 (the voxel count, never read on the host) -> [N,3]
+    f32; rows from nv on are padding. Voxel v sums its run in f64 and
+    divides once. CPU tensors take `_run_means_plain`; CUDA tensors
+    launch kernel V (`csrc/voxel.cu`, the run summed in row order) or
+    raise. The two agree within one f32 ulp."""
+    if ps.device.type == "cpu":
+        return _run_means_plain(ps, ms, new_run, s_v)
+    return _launch_run_means(ps, ms, new_run, s_v, nv)
+
+
+voxel_run_means.launches = 0
+
+
+def _run_means_plain(ps, ms, new_run, s_v):
+    """Plain version of `voxel_run_means`: each voxel's sums as the
+    difference of a float64 cumsum at its run's last row and the row
+    before its first."""
+    n = ps.shape[0]
+    seg = torch.cumsum(new_run.long(), dim=0) - 1
+    nxt_start = torch.cat([new_run[1:] | ~ms[1:],
+                           torch.ones(1, dtype=torch.bool, device=ps.device)])
+    e_v = _by_voxel(ms & nxt_start, seg,
+                    torch.arange(n, device=ps.device))
+    vals = torch.cat([torch.where(ms[:, None], ps, 0.0),
+                      ms[:, None].float()], dim=1).double()
+    csum = torch.cumsum(vals, dim=0)
+    sums = csum[e_v] - torch.where((s_v > 0)[:, None],
+                                   csum[torch.clamp_min(s_v - 1, 0)], 0.0)
+    return (sums[:, :3] / torch.clamp_min(sums[:, 3:], 1.0)).float()
+
+
+def _launch_run_means(ps, ms, new_run, s_v, nv):
+    """One launch of `csrc/voxel.cu` -> [N,3] f32."""
+    kernels.require_cuda("voxel_run_means", ps, ms, new_run, s_v, nv,
+                         dtypes=(torch.float32, torch.bool, torch.bool,
+                                 torch.int64, torch.int64))
+    n = ps.shape[0]
+    if (ps.shape != (n, 3) or ms.shape != (n,) or new_run.shape != (n,)
+            or s_v.shape != (n,) or nv.numel() != 1):
+        raise ValueError("voxel_run_means: shapes "
+                         f"{[tuple(x.shape) for x in (ps, ms, new_run, s_v, nv)]}"
+                         ", expected [N,3], [N], [N], [N], []")
+    out = torch.empty((n, 3), dtype=torch.float32, device=ps.device)
+    fn = kernels.entry("voxel.cu", "pct_voxel_run_means", n_ptr=6, n_int=1)
+    kernels.check(fn(ps.data_ptr(), ms.data_ptr(), new_run.data_ptr(),
+                     s_v.data_ptr(), nv.data_ptr(), out.data_ptr(), n,
+                     kernels.stream_ptr(ps.device)), "voxel_run_means")
+    voxel_run_means.launches += 1
+    return out
 
 
 def voxel_downsample_cloud(pc: PointCloud, leaf: float,

@@ -17,6 +17,7 @@ from pctpu_torch.ops import (pallas_ballgroup, pallas_banded, pallas_fps,
                              pallas_gather, pallas_icp_mega, pallas_nn)
 from pctpu_torch.ops.ball_query import ball_query
 from pctpu_torch.ops.gather import group_points
+from pctpu_torch.ops import voxel
 from pctpu_torch.ops.voxel import voxel_downsample_capped
 from pctpu_torch.register import icp, ransac
 from pctpu_torch.register.icp import icp_fixed_iters_banded_mega_batch
@@ -26,6 +27,9 @@ from grid_faces import faces_cloud
 from ransac_cases import CASES as RANSAC_CASES
 from ransac_cases import DIST as RANSAC_DIST
 from ransac_cases import refine_inputs, unsure_rows
+from voxel_runs import CASES as VOXEL_CASES
+from voxel_runs import (case_cloud, hdl64_scan, in_order_means, plain_gap_ok,
+                        recorded_runs)
 
 pytestmark = pytest.mark.cuda
 
@@ -1760,3 +1764,84 @@ def test_ransac_refine_rejects_mixed_devices_and_strides(cuda):
     strided = x[2].transpose(1, 2).contiguous().transpose(1, 2)
     with pytest.raises(ValueError, match="contiguous"):
         ransac.ransac_refine(x[0], x[1], strided, *x[3:], th)
+
+
+@pytest.fixture(scope="module")
+def hdl64():
+    """One whole synthetic HDL-64E scan, 124,668 points."""
+    return hdl64_scan(124_668)
+
+
+@pytest.mark.parametrize("case", VOXEL_CASES)
+def test_voxel_run_means_kernel_equals_in_order_sums(cuda, hdl64, case):
+    """Kernel V on `voxel_downsample`'s own inputs: every centroid equal
+    bit for bit to a host float64 sum of its run in ascending row order,
+    divided and rounded once; a second launch gives the same bits and
+    zeros past the voxels; one launch counted; the plain version on the
+    same CUDA tensors within `plain_gap_ok` (one float32 ulp; near 0 its
+    prefixes' float64 rounding), the share of rows that differ printed."""
+    pts, mask, leaf = case_cloud(case, hdl64)
+    before = voxel.voxel_run_means.launches
+    down, args = recorded_runs(pts, mask, leaf, cuda)
+    torch.cuda.synchronize()
+    assert voxel.voxel_run_means.launches == before + 1
+    nv = int(args[4])
+    assert nv == int(down.mask.sum()) > 0
+    got = down.points[:nv].cpu().numpy()
+    np.testing.assert_array_equal(got, in_order_means(*args))
+    assert torch.equal(down.points[nv:],
+                       down.points[:1].expand(len(pts) - nv, 3))
+    again = voxel._launch_run_means(*args)
+    assert torch.equal(again[:nv], down.points[:nv])
+    assert bool((again[nv:] == 0).all())
+    plain = voxel._run_means_plain(*args[:4])[:nv].cpu().numpy()
+    differ = float((plain != got).any(1).mean())
+    print(f"{case}: {len(pts)} points, {nv} voxels, {differ:.3%} of rows "
+          "differ from the plain version")
+    assert plain_gap_ok(plain, got, args[0], args[1])
+
+
+def test_voxel_run_means_kernel_on_a_masked_out_cloud(cuda):
+    pts = np.random.default_rng(2).uniform(-5, 5, (300, 3)).astype(np.float32)
+    down, args = recorded_runs(pts, np.zeros(300, bool), 1.0, cuda)
+    assert int(args[4]) == 0 and not bool(down.mask.any())
+    assert torch.equal(down.points.cpu(), torch.zeros(300, 3))
+
+
+def test_register_pair_launches_voxel_run_means_twice(cuda, hdl64,
+                                                      monkeypatch):
+    """One `register_pair` call on CUDA tensors launches kernel V once a
+    cloud and never takes the plain version."""
+    from pctpu_torch.core.cloud import PointCloud
+    from pctpu_torch.register import pipeline
+
+    def refuse(*args):
+        raise AssertionError("plain version called on CUDA tensors")
+    monkeypatch.setattr(voxel, "_run_means_plain", refuse)
+    src = hdl64[np.random.default_rng(4).choice(len(hdl64), 16_384,
+                                                replace=False)]
+    c, s = np.cos(0.3), np.sin(0.3)
+    dst = (src @ np.array([[c, s, 0], [-s, c, 0], [0, 0, 1]], np.float32)
+           + np.array([1.0, -0.5, 0.2], np.float32))
+    mask = torch.ones(len(src), dtype=torch.bool, device=cuda)
+    before = voxel.voxel_run_means.launches
+    out = pipeline.register_pair(
+        PointCloud(_t(src, cuda), mask), PointCloud(_t(dst, cuda), mask),
+        generator=torch.Generator(device=cuda).manual_seed(0), device=cuda)
+    torch.cuda.synchronize()
+    assert voxel.voxel_run_means.launches == before + 2
+    assert bool(torch.isfinite(out.T).all())
+
+
+def test_voxel_run_means_rejects_bad_inputs(cuda):
+    pts = np.random.default_rng(3).uniform(-5, 5, (500, 3)).astype(np.float32)
+    _, args = recorded_runs(pts, np.ones(500, bool), 1.0, cuda)
+    ps, ms, new_run, s_v, nv = args
+    with pytest.raises(ValueError, match="CUDA device"):
+        voxel.voxel_run_means(ps, ms.cpu(), new_run, s_v, nv)
+    with pytest.raises(ValueError, match="dtype"):
+        voxel.voxel_run_means(ps, ms, new_run, s_v.int(), nv)
+    with pytest.raises(ValueError, match="contiguous"):
+        voxel.voxel_run_means(ps.t().contiguous().t(), ms, new_run, s_v, nv)
+    with pytest.raises(ValueError, match="shapes"):
+        voxel.voxel_run_means(ps[:, :2].contiguous(), ms, new_run, s_v, nv)

@@ -33,9 +33,10 @@ against its moved copy a call): the span costs, outputs on = off, one call's
 Chrome trace with every kernel-5 (`icp_mega_kernel`) launch required inside
 `register_pair/icp/coarse` or `register_pair/icp/polish` and every K1
 (`nn1_kernel`) launch inside `register_pair/icp_stats`, and over 12
-profiled calls `TRACE.report()` and the launches a call that kernel 5's
-and K1's counters (`icp_mega.launches`, `nn1.launches`) count (2 and 1
-expected); written to `chiprun_out/trace_register_pair.json`.
+profiled calls `TRACE.report()` and the launches a call that kernel 5's,
+K1's and kernel V's counters (`icp_mega.launches`, `nn1.launches`,
+`voxel_run_means.launches`: the voxel centroids of each cloud) count (2,
+1 and 2 expected); written to `chiprun_out/trace_register_pair.json`.
 """
 import argparse
 import json
@@ -110,7 +111,7 @@ def trace_single(args, res, torch, profiling, scan, rng):
     when every check held."""
     import chip_smoke
     from pctpu_torch.core.cloud import PointCloud
-    from pctpu_torch.ops import pallas_icp_mega, pallas_nn
+    from pctpu_torch.ops import pallas_icp_mega, pallas_nn, voxel
     from pctpu_torch.register.pipeline import (RegistrationConfig,
                                                register_pair)
     dev = torch.device("cuda")
@@ -147,6 +148,7 @@ def trace_single(args, res, torch, profiling, scan, rng):
             torch.profiler.ProfilerActivity.CUDA]
     profiling.TRACE.reset()
     n5, n1 = pallas_icp_mega.icp_mega.launches, pallas_nn.nn1.launches
+    nvox = voxel.voxel_run_means.launches
     ms = []
     with torch.profiler.profile(activities=acts):
         for _ in range(calls):
@@ -161,6 +163,8 @@ def trace_single(args, res, torch, profiling, scan, rng):
         "k5_launches_a_call": (pallas_icp_mega.icp_mega.launches - n5)
         / calls,
         "k1_launches_a_call": (pallas_nn.nn1.launches - n1) / calls,
+        "voxel_run_means_launches_a_call":
+        (voxel.voxel_run_means.launches - nvox) / calls,
         "call_ms": ms, "median_call_ms": statistics.median(ms),
         "spans_a_call": sum(profiling.TRACE.counts.values()) / calls,
         "ms_a_call": {k: v * 1e3 / calls for k, v in
@@ -168,10 +172,12 @@ def trace_single(args, res, torch, profiling, scan, rng):
         "report": profiling.TRACE.report()}
     r = res["register_pair"]
     print(f"register_pair, {calls} profiled calls: kernel 5 "
-          f"{r['k5_launches_a_call']} and K1 {r['k1_launches_a_call']} "
+          f"{r['k5_launches_a_call']}, K1 {r['k1_launches_a_call']} and "
+          f"voxel_run_means {r['voxel_run_means_launches_a_call']} "
           f"launches a call\n" + r["report"], file=sys.stderr)
     return (equal and in_place and r["k5_launches_a_call"] == 2
-            and r["k1_launches_a_call"] == 1)
+            and r["k1_launches_a_call"] == 1
+            and r["voxel_run_means_launches_a_call"] == 2)
 
 
 def main(argv=None):
