@@ -4,6 +4,8 @@ transform draws (fed to the reference by replacing its `jax.random` draw
 for the call) == the reference transform, within 1e-6; `angle_axis`,
 `pc_normalize` and the default pipeline likewise. Inputs come from numpy
 with a seed."""
+import torch_threads as _torch_threads  # noqa: F401
+
 import jax
 import jax.numpy as jnp
 import numpy as np

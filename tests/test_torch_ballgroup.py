@@ -7,6 +7,8 @@ against JAX `ball_group_pallas{,_batched}(interpret=True)`, atol 1e-6 as
 both sides; only a point within an ulp of the radius could round to the
 other side. The VJP against `jax.grad` of the reference. Inputs come from
 numpy with a seed."""
+import torch_threads as _torch_threads  # noqa: F401
+
 import jax
 import jax.numpy as jnp
 import numpy as np

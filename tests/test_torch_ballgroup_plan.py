@@ -3,6 +3,8 @@ in `pctpu_torch/ops/pallas_ballgroup.py`, which the kernel's C entry
 checks and follows. It runs here without a card; the kernel itself is
 held against `ball_group_plain` in tests/test_torch_cuda.py in both of
 the plan's modes."""
+import torch_threads as _torch_threads  # noqa: F401
+
 import pytest
 
 from pctpu_torch.ops.pallas_ballgroup import (CTA_RESERVED, MODES,

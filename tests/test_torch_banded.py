@@ -6,6 +6,8 @@ tests/test_pallas_nn.py:32-107, with masked queries and masked db points.
 K7/K8 tolerance: m44 within 1e-4 relative. The Pallas kernels sum the
 moments in f32 in XLA's order; the port sums each tile in f64 and rounds
 the tiles' f64 sum once, so the two differ by f32 summation noise."""
+import torch_threads as _torch_threads  # noqa: F401
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

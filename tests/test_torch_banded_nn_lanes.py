@@ -8,6 +8,8 @@ kernel's xor order). That rule must equal `nearest_banded_plain` exactly,
 and the JAX package's Pallas kernel (interpret mode) on a tie-heavy
 input. The kernel itself is held against the plain version on the card
 in tests/test_torch_cuda.py."""
+import torch_threads as _torch_threads  # noqa: F401
+
 import re
 from pathlib import Path
 

@@ -7,6 +7,8 @@ cloud. Inputs come from numpy with a seed.
 Tolerances: IoU within 1e-5 (the clip's products round apart from XLA's
 dot); NMS indices and validity, point membership, and ROI pooling's
 selection and counts equal, the pooled local coordinates within 1e-6."""
+import torch_threads as _torch_threads  # noqa: F401
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -14,6 +14,8 @@ clustering the same partition, and the embedding's projector E E^T within
 eigenvalue are arbitrary in both LAPACKs); DBSCAN labels equal exactly;
 plane normal and offset within 1e-5, inlier masks equal except within
 1e-5 of the threshold."""
+import torch_threads as _torch_threads  # noqa: F401
+
 import jax
 import jax.numpy as jnp
 import numpy as np

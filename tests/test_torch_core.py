@@ -2,6 +2,8 @@
 (`pctpu_torch.core`, `ops.gather`, `ops.pairwise`, `ops.eigh3`,
 `ops.voxel`), plus the port's device and import rules. Inputs come from
 numpy with a seed and go through both packages on the CPU."""
+import torch_threads as _torch_threads  # noqa: F401
+
 import ast
 import pathlib
 

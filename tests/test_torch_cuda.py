@@ -6,6 +6,8 @@ conftest:
 
     python -m pytest --noconftest tests/test_torch_cuda.py
 """
+import torch_threads as _torch_threads  # noqa: F401
+
 import numpy as np
 import pytest
 import torch

@@ -9,6 +9,8 @@ Gumbel top-3, injected into the port.
 Tolerances: probabilities within 1e-5 (the Dense layers' sums run in
 another order in the two libraries' CPU BLAS), the KITTI rows and the AP
 equal."""
+import torch_threads as _torch_threads  # noqa: F401
+
 import functools
 import os
 

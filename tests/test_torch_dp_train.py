@@ -31,6 +31,8 @@ Tolerances:
     same rows: 80 rows a rank start at offsets 0, 2, 1, 0);
   * every rank holds the same parameters (0 apart).
 """
+import torch_threads as _torch_threads  # noqa: F401
+
 import functools
 
 import flax.linen as fnn

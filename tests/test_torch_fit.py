@@ -4,6 +4,8 @@ prune, latest, restore), `fit` on the toy disk/column task of
 reference's on a tiny layout written under tmp_path, the training CLI,
 FPS with more picks than points against the reference, and the entry
 points' device rule. Inputs come from numpy with a seed."""
+import torch_threads as _torch_threads  # noqa: F401
+
 import json
 import os
 

@@ -1,6 +1,8 @@
 """The port's feature stage against the JAX package: radius normals,
 the x-band tables, kernels K2/K3 (fused FPFH; plain versions on the CPU,
 against the Pallas kernels in interpret mode) and mutual matching."""
+import torch_threads as _torch_threads  # noqa: F401
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

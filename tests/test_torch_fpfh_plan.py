@@ -3,6 +3,8 @@
 C entries check and follow. It runs here without a card; the kernels
 themselves are held against their plain versions at every shape the plan
 takes in tests/test_torch_cuda.py."""
+import torch_threads as _torch_threads  # noqa: F401
+
 import re
 from pathlib import Path
 

@@ -10,6 +10,8 @@ weighted neighbour sums are f32 dot products summed in another order.
 Cases: x-banded voxel-like clouds, a query tile with no valid point
 (nt = 0), masked columns, two coincident points (d2 = 0) and the
 unbanded tables."""
+import torch_threads as _torch_threads  # noqa: F401
+
 from functools import partial
 
 import jax

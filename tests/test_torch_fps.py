@@ -4,6 +4,8 @@
 the Pallas kernels in interpret mode. The picks must be equal exactly:
 one differently rounded distance moves a pick and every pick after it.
 Inputs come from numpy with a seed."""
+import torch_threads as _torch_threads  # noqa: F401
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

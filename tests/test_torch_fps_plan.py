@@ -2,6 +2,8 @@
 `pctpu_torch/ops/pallas_fps.py`, which the kernel's C entry checks and
 follows. It runs here without a card; the kernel itself is held against
 `fps_plain` in tests/test_torch_cuda.py at every width the plan takes."""
+import torch_threads as _torch_threads  # noqa: F401
+
 import pytest
 
 from pctpu_torch.ops.pallas_fps import (MAX_THREADS, MIN_THREADS, MODES,

@@ -6,6 +6,8 @@ entries one at a time in ascending index onto zeros), the
 `group_points_pallas` gradient against `jax.grad` of the reference (exact
 for the same reason), and `table_fits`. Inputs come from numpy with a
 seed."""
+import torch_threads as _torch_threads  # noqa: F401
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -13,6 +13,8 @@ The grid ICP: the pose within 1e-5 of the JAX package's, and the
 reference test's gate (`tests/test_register.py:189`: RTE < 0.05 m, RRE <
 0.5 deg).
 """
+import torch_threads as _torch_threads  # noqa: F401
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -4,6 +4,8 @@ banded ICP loops (K6, K7, K8), the exact polish and the while-loop ICP
 (K1), the pair sweeps (K1, K4), and `procrustes_from_moments`. Pallas
 kernels run in interpret mode. T within 1e-4 unless a test says
 otherwise."""
+import torch_threads as _torch_threads  # noqa: F401
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

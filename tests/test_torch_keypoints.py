@@ -36,6 +36,8 @@ Tolerances:
 - `pca`: eigenvalues within 1e-5 relative, eigenvectors within 1e-5 up to
   sign; `pca_project` likewise.
 """
+import torch_threads as _torch_threads  # noqa: F401
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -6,6 +6,8 @@ see the order of equal distances. On an integer grid nearly every row
 ties: the reference's `lax.top_k` puts the lowest index first among equal
 distances, and so must the port, on the CPU and on the card alike (one
 code path: a stable sort)."""
+import torch_threads as _torch_threads  # noqa: F401
+
 import importlib
 
 import jax.numpy as jnp

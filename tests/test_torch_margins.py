@@ -3,6 +3,8 @@ radius tests and cap ranks are unsure, which NMS and threshold decisions
 are settled, and that the ISS, gradient and SHOT bounds react to the
 geometry that makes a result depend on rounding. Exact expectations
 (booleans), no tolerance."""
+import torch_threads as _torch_threads  # noqa: F401
+
 import numpy as np
 import pytest
 import torch

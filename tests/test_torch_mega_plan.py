@@ -3,6 +3,8 @@ spreads a launch over the card: `unit_plan` and `unit_queries` in
 `pctpu_torch/ops/pallas_icp_mega.py`, which mirror the kernel's unit and
 thread arithmetic. They run here without a card; the kernel itself is held
 against its plain version in tests/test_torch_cuda.py."""
+import torch_threads as _torch_threads  # noqa: F401
+
 import pytest
 
 from pctpu_torch.ops.pallas_icp_mega import (MAX_LANES, QUERIES_PER_THREAD,

@@ -8,6 +8,8 @@ skips, on x-sorted clouds (where the tables prune), shuffled ones (where
 they cannot) and x-banded ones. The visited pairs' counts must equal the
 plain version's count channel. The kernel itself is held against the
 plain version on the card in tests/test_torch_cuda.py."""
+import torch_threads as _torch_threads  # noqa: F401
+
 import math
 import re
 from pathlib import Path

@@ -9,6 +9,8 @@ under `pctpu_torch/`, and concurrent builds land whole. The JAX
 package's native build is not called here: it builds in its own tree,
 which other test files' workers share.
 """
+import torch_threads as _torch_threads  # noqa: F401
+
 import ctypes
 import subprocess
 from concurrent.futures import ThreadPoolExecutor

@@ -2,6 +2,8 @@
 the JAX package's Pallas kernel `nearest_pallas` run in interpret mode.
 On the CPU the wrapper runs K1's plain version; the kernel itself is
 compared with it on the card in tests/test_torch_cuda.py."""
+import torch_threads as _torch_threads  # noqa: F401
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

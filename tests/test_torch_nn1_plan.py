@@ -5,6 +5,8 @@ slice in ascending index with a strict '<' from (1e30, 0), and the
 partials are merged in slice order with a strict '<'. A pure-torch
 emulation of that rule is held here against `nearest_plain` bit for bit;
 the kernel itself is held against it in tests/test_torch_cuda.py."""
+import torch_threads as _torch_threads  # noqa: F401
+
 import numpy as np
 import pytest
 import torch

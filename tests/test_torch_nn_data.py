@@ -8,6 +8,8 @@ reference's `test_report` on the same weights and data) and `task=kitti`
 plain version against the reference at that shape), and the leftovers
 `quat_to_rotmat`, `tq_to_transform` and `mask_group`. Inputs come from
 numpy with a seed."""
+import torch_threads as _torch_threads  # noqa: F401
+
 import os
 
 import h5py
@@ -38,16 +40,6 @@ from pctpu_torch.nn import train_cli
 from pctpu_torch.ops import gather as tgather
 from pctpu_torch.ops import pallas_ballgroup, pallas_fps
 from pctpu_torch.ops.ball_query import ball_query
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread: the suite runs in several worker processes at
-    once, and torch's CPU thread pools would oversubscribe the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _s3dis_layout(root, rng, blocks=(3, 3), points=256):

@@ -4,6 +4,8 @@ moments against a float64 numpy brute force, and the fused normals
 against the reference's `normals_radius_fused(interpret=True)` and the
 analytic normal on the tilted plane of `tests/test_features.py:679-711`.
 """
+import torch_threads as _torch_threads  # noqa: F401
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -14,16 +16,6 @@ from pctpu.features.pallas_fpfh import \
     normals_radius_fused as j_normals_radius_fused
 from pctpu_torch.features import pallas_fpfh
 from pctpu_torch.features.fpfh_dense import normals_radius_dense
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread: the suite runs in several worker processes at
-    once, and torch's CPU thread pools would oversubscribe the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 TRUE_N = np.array([-0.05, -0.1, 1.0]) / np.linalg.norm([-0.05, -0.1, 1.0])

@@ -9,6 +9,8 @@ eigenvector is decided by rounding, and the two packages' dense matmuls
 round differently, so `run_odometry`'s normals call is pointed at the
 reference's `normals_radius_dense` here. One JAX run per file, shared
 through a module fixture."""
+import torch_threads as _torch_threads  # noqa: F401
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -19,16 +21,6 @@ from pctpu.features.fpfh_dense import normals_radius_dense as j_normals
 from pctpu.pipelines import odometry as jodo
 from pctpu_torch.ops import pallas_nn
 from pctpu_torch.pipelines import odometry as todo
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread: the suite runs in several worker processes at
-    once, and torch's CPU thread pools would oversubscribe the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 CFG = dict(voxel_leaf=0.5, icp_iters=8, icp_dist_thresh=3.0,

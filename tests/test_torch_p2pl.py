@@ -8,6 +8,8 @@ computes): with the trim on, the kept set is cut by the rank of d2, and
 the reference's CPU default (the a^2+b^2-2ab expansion, f32 error ~3e-5
 m^2 at 20 m, the size of the 5 mm residuals here) would reorder
 near-equal distances at the cut."""
+import torch_threads as _torch_threads  # noqa: F401
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -18,16 +20,6 @@ from pctpu.ops.pallas_nn import nearest_pallas
 from pctpu.register import icp as jicp
 from pctpu_torch.ops import pallas_nn
 from pctpu_torch.register import icp as ticp
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread: the suite runs in several worker processes at
-    once, and torch's CPU thread pools would oversubscribe the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _t(x):

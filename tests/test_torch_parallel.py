@@ -36,6 +36,8 @@ graph 1.67e-6, full pipeline 4.77e-7, dense pose graph and pair sweep 0):
     dense FPFH and while-loop ICP);
   * every rank returns the same result (0 apart).
 """
+import torch_threads as _torch_threads  # noqa: F401
+
 import numpy as np
 import pytest
 import jax

@@ -4,6 +4,8 @@ plain kernel versions on the CPU) against the JAX package's
 package runs its dense-FPFH / while-loop ICP path, so the two are not
 expected to agree exactly: both must pass the reference's success bound
 and agree with each other within 0.1 m and 0.5 deg."""
+import torch_threads as _torch_threads  # noqa: F401
+
 import dataclasses
 
 import jax

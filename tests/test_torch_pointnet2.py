@@ -8,6 +8,8 @@ Inputs come from numpy with a seed.
 Logits agree within rtol = atol = 1e-4: the Dense layers' sums run in
 another order in the two libraries' CPU BLAS; the neighbour selection
 (FPS, ball query) is exact on both sides."""
+import torch_threads as _torch_threads  # noqa: F401
+
 import functools
 
 import jax

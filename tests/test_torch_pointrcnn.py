@@ -16,6 +16,8 @@ norm, floored at 1e-3 of the whole gradient's norm (measured at most
 a window scale's rows in other orders);
 decoded boxes within 1e-5; proposals' order and validity equal; targets
 equal."""
+import torch_threads as _torch_threads  # noqa: F401
+
 import functools
 
 import jax
@@ -32,15 +34,6 @@ from pctpu_torch.models import pointrcnn as tr
 
 B, N, NPOINTS = 2, 512, (128, 32)
 GT = np.float32([1.5, -0.8, 0.8, 3.9, 1.6, 1.6, 0.4])
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread: the suite runs in several worker processes."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _t(x):

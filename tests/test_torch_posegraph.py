@@ -7,6 +7,8 @@ Tolerances come from a float64 run of the port: on this graph the f32
 poses of either package sit within 1.0e-6 of the port's float64 solve
 (and of each other), the float64 poses of the two packages are equal
 after rounding to f32; the tests allow 1e-5."""
+import torch_threads as _torch_threads  # noqa: F401
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -15,16 +17,6 @@ from scipy.spatial.transform import Rotation
 
 from pctpu.parallel import posegraph as jpg
 from pctpu_torch.parallel import posegraph as tpg
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread: the suite runs in several worker processes at
-    once, and torch's CPU thread pools would oversubscribe the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _rot(rng, n, scale):

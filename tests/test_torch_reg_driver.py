@@ -5,6 +5,8 @@ inputs (the same RANSAC draws for `ransac_init`), and the driver on three
 small synthetic oxford `.bin` clouds, its result file read and scored by
 the reference's own reader and `evaluate_rt`."""
 
+import torch_threads as _torch_threads  # noqa: F401
+
 import jax
 import numpy as np
 import pytest
@@ -16,16 +18,6 @@ from pctpu.register import evaluate as jevaluate
 from pctpu.register import template_api as japi
 from pctpu_torch.pipelines import registration_driver as driver
 from pctpu_torch.register import template_api as tapi
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread: the suite runs in several worker processes at
-    once, and torch's CPU thread pools would oversubscribe the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 # tests/test_pipeline.py:86-89

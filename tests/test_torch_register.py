@@ -3,6 +3,8 @@ Procrustes, the triad rigid fit, batched RANSAC (fed the JAX package's own
 draws), RANSAC's select and refine on its degenerate cases, the band
 layout and kernel K4 through both ICP entry points (plain version on the
 CPU, against the Pallas kernel in interpret mode)."""
+import torch_threads as _torch_threads  # noqa: F401
+
 import jax
 import jax.numpy as jnp
 import numpy as np

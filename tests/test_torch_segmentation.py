@@ -16,6 +16,8 @@ where well conditioned; the numpy copies' outputs equal; the voxel
 picks equal, one cloud's centroids within 1e-6 and the batched ones within
 1e-4 (their f32 cell-relative cumsums differ in rounding order, as
 `tests/test_torch_core.py` holds `voxel_downsample_capped`)."""
+import torch_threads as _torch_threads  # noqa: F401
+
 import csv
 import filecmp
 import os

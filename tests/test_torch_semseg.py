@@ -20,6 +20,8 @@ within 3e-4 (JAX 1.5e-4, the port 8.6e-6), each gradient within 5e-2 of its norm
 the whole gradient's norm (JAX up to 2.55e-2, the port 8.4e-3: SA1's BN
 scales and biases sum 65,536 rows that BN's backward makes cancel, and
 XLA's fused CPU reductions round more)."""
+import torch_threads as _torch_threads  # noqa: F401
+
 import functools
 
 import flax.linen as fnn
@@ -43,16 +45,6 @@ from pctpu_torch.ops import interpolate as tinterp
 from pctpu_torch.ops.knn import knn
 
 B, N, CLASSES = 2, 1024, 13
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread: the suite runs in several worker processes at
-    once, and torch's CPU thread pools would oversubscribe the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _room(seed, b=B, n=N):

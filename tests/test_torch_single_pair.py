@@ -4,6 +4,8 @@ kNN normals, the neighbour-list FPFH, single-pair and adaptive RANSAC (fed
 the JAX package's own draws), `register_pair` as a whole (both ICP
 backends), the config round trip, and the numpy-only IO and evaluation
 copies. Inputs come from numpy with a seed."""
+import torch_threads as _torch_threads  # noqa: F401
+
 import dataclasses
 import importlib
 

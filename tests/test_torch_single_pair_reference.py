@@ -6,6 +6,8 @@ that the window leaves out queries' true nearest neighbours, where the
 reference's windowed phase follows the port's and an exact 1-NN ICP does
 not. Small sizes: 2,400-point clouds, kernel 5 at `block` and
 `query_tile` 128, 6 windowed and 2 exact iterations."""
+import torch_threads as _torch_threads  # noqa: F401
+
 import dataclasses
 import functools
 

@@ -4,6 +4,8 @@
 stages with its counts, nested on the host's clock and in the profiler's
 ranges, and the outputs unchanged bit for bit; the Chrome trace of
 `profiler_trace`; and the benchmark's six readers of the spans."""
+import torch_threads as _torch_threads  # noqa: F401
+
 import itertools
 import json
 import sys

@@ -17,6 +17,8 @@ gradient's norm for the gradients that are zero in exact arithmetic (the
 bias of the BN ahead of group-all's max-pool). BN over B = 2 clouds
 amplifies rounding further, so the step is held at B = 8. The optimizer
 within 1e-6 on identical gradients."""
+import torch_threads as _torch_threads  # noqa: F401
+
 import functools
 
 import flax.linen as fnn

@@ -4,6 +4,8 @@ PLY writers (`utils.viz`) byte for byte, the timers and the MFU helper
 count within 20% of 2MNK), the profiler trace, and the neighbour-search
 CLI (`pipelines.nn_benchmark`) on the CPU, every row printed."""
 
+import torch_threads as _torch_threads  # noqa: F401
+
 import numpy as np
 import pytest
 import torch

@@ -6,6 +6,8 @@ to ~1e7 m, so they may land one float32 ulp from the in-order sum, and
 near 0 up to the float64 ulp of that sum (`plain_gap_ok`); the voxel set
 and every row past it are held exactly. Kernel V is held to the
 same sums bit for bit on the card (`tests/test_torch_cuda.py`)."""
+import torch_threads as _torch_threads  # noqa: F401
+
 import numpy as np
 import pytest
 import torch

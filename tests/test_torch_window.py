@@ -25,6 +25,8 @@ one activation moves the layers after it; measured 2.9e-3 at window
 grouping and 2.2e-3 at ball grouping, on logits up to 0.81. The folded
 layer within the
 reference's own 2e-4 (`tests/test_models.py:265-312`)."""
+import torch_threads as _torch_threads  # noqa: F401
+
 import functools
 
 import flax.linen as fnn
@@ -46,16 +48,6 @@ from pctpu_torch.nn import train as T
 from pctpu_torch.ops import morton as tmorton
 
 CLASSES = 10
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread: the suite runs in several worker processes at
-    once, and torch's CPU thread pools would oversubscribe the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _clouds(seed, b, n):

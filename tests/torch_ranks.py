@@ -5,6 +5,8 @@ spawns, and a spawned rank imports the module of its function, so this
 module imports only numpy, torch and the port, never JAX or the JAX
 package. The parent computes every reference figure and passes numpy
 arrays in."""
+import torch_threads as _torch_threads  # noqa: F401
+
 import time
 
 import numpy as np
