@@ -8,11 +8,32 @@ w = u x v, d = (q - p)/|q - p|: f1 = v . n_q, f2 = u . d,
 f3 = atan2(w . n_q, u . n_q); 11 bins each -> 33-D;
 FPFH_i = SPFH_i + (1/k) sum_j (1/d_ij) SPFH_j, each 11-bin block
 renormalised to sum 100.
+
+On CUDA tensors `fpfh` replays its body from a captured
+`torch.cuda.CUDAGraph` (`fpfh_graph`): the ~420 small launches of the kNN
+normals, the radius lists and the SPFH, each paced by the host, become one
+replay of the same kernels on the same data, so the same bits. A graph is
+keyed by what the call observes: the points' shape, dtype and device,
+`radius`, `k_cap`, `normal_k`, and which of `mask` and `normals` were
+given (with their dtypes). The first call at a key runs the body eagerly;
+the second captures it, after a warm-up run on a side stream whose result
+it returns; every later call copies its inputs into the graph's static
+buffers, replays, and returns a copy of the static output, so a caller's
+earlier descriptors survive the next replay. A caller whose shape changes
+every call never pays a capture; `register_pair`'s uniform cap hands in
+one shape, so it captures once a process. At most `_MAX_GRAPHS` = 4
+graphs are kept, the least recently used dropped first: each holds its
+own memory pool for the body's intermediates (the distance tiles, the
+sorts and the [N, k_cap, 33] gathers), and the program's callers use one
+key a process. At most `_MAX_SEEN` = 64 keys met once are remembered, so
+a stream of changing shapes holds no more. Counters: `fpfh_graph.captures`
+and `fpfh_graph.replays`. CPU tensors run the body eagerly.
 """
 from __future__ import annotations
 
 import math
-from typing import Optional
+from collections import OrderedDict
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -68,33 +89,115 @@ def spfh(points: torch.Tensor, normals: torch.Tensor,
     return torch.cat([h1, h2, h3], dim=-1)
 
 
+def _fpfh_body(points, mask, normals, radius, k_cap, normal_k):
+    """The descriptors' chain, eager: spans `normals` (when computed
+    here), `radius` and `spfh`."""
+    n = points.shape[0]
+    if mask is None:
+        mask = torch.ones((n,), dtype=torch.bool, device=points.device)
+    if normals is None:
+        with span("normals"):
+            normals = estimate_normals(points, mask=mask, k=normal_k)
+    with span("radius"):
+        nbrs = radius_search(points, points, radius, k_cap, db_mask=mask)
+    with span("spfh"):
+        s = spfh(points, normals, nbrs)                      # [N,33]
+        rows = torch.arange(n, device=points.device)[:, None]
+        not_self = nbrs.valid & (nbrs.idx != rows)
+        dist = torch.sqrt(torch.clamp_min(nbrs.dist2, 1e-12))
+        wgt = torch.where(not_self, 1.0 / dist, 0.0)
+        k_eff = torch.clamp_min(not_self.sum(dim=1).float(), 1.0)
+        nbr_spfh = group_points(s, nbrs.idx)                 # [N,K,33]
+        f = s + torch.sum(nbr_spfh * wgt[..., None], dim=1) \
+            / k_eff[:, None]
+        blocks = f.reshape(n, 3, N_BINS)
+        sums = torch.clamp_min(blocks.sum(dim=-1, keepdim=True), 1e-12)
+        return (100.0 * blocks / sums).reshape(n, 3 * N_BINS)
+
+
+class _Replay(NamedTuple):
+    """A captured body: its graph, static inputs (None where the call gave
+    none) and static output."""
+    graph: "torch.cuda.CUDAGraph"
+    points: torch.Tensor
+    mask: Optional[torch.Tensor]
+    normals: Optional[torch.Tensor]
+    out: torch.Tensor
+
+
+_MAX_GRAPHS = 4
+_MAX_SEEN = 64
+_GRAPHS: "OrderedDict[tuple, _Replay]" = OrderedDict()
+_SEEN: "OrderedDict[tuple, None]" = OrderedDict()
+
+
+def _capture(points, mask, normals, radius, k_cap, normal_k):
+    """Static copies of the inputs, the body's warm-up run on a side
+    stream, then its capture -> (_Replay, the warm-up's descriptors)."""
+    dev = points.device
+    ambient = torch.cuda.current_stream(dev)
+    static = [None if x is None else x.clone() for x in (points, mask,
+                                                          normals)]
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(ambient)
+    with torch.cuda.stream(side):
+        warm = _fpfh_body(*static, radius, k_cap, normal_k)
+    ambient.wait_stream(side)
+    warm.record_stream(ambient)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = _fpfh_body(*static, radius, k_cap, normal_k)
+    return _Replay(graph, *static, out), warm
+
+
+def fpfh_graph(points, mask, normals, radius, k_cap, normal_k):
+    """`fpfh`'s body on CUDA tensors: eager at a key's first call, captured
+    at its second, replayed from its third on (the module's note)."""
+    key = (tuple(points.shape), points.dtype, points.device, float(radius),
+           int(k_cap), int(normal_k),
+           None if mask is None else mask.dtype,
+           None if normals is None else normals.dtype)
+    rep = _GRAPHS.get(key)
+    if rep is None:
+        if key not in _SEEN:
+            _SEEN[key] = None
+            if len(_SEEN) > _MAX_SEEN:
+                _SEEN.popitem(last=False)
+            return _fpfh_body(points, mask, normals, radius, k_cap, normal_k)
+        del _SEEN[key]
+        with torch.cuda.device(points.device):
+            rep, warm = _capture(points, mask, normals, radius, k_cap,
+                                 normal_k)
+        _GRAPHS[key] = rep
+        if len(_GRAPHS) > _MAX_GRAPHS:
+            _GRAPHS.popitem(last=False)
+        fpfh_graph.captures += 1
+        return warm
+    _GRAPHS.move_to_end(key)
+    for static, x in zip((rep.points, rep.mask, rep.normals),
+                         (points, mask, normals)):
+        if static is not None:
+            static.copy_(x)
+    rep.graph.replay()
+    fpfh_graph.replays += 1
+    return rep.out.clone()
+
+
+fpfh_graph.captures = 0
+fpfh_graph.replays = 0
+
+
 def fpfh(points: torch.Tensor, mask: Optional[torch.Tensor] = None,
          normals: Optional[torch.Tensor] = None, radius: float = 10.0,
          k_cap: int = 100, normal_k: int = 30) -> torch.Tensor:
     """points [N,3] -> FPFH descriptors [N,33]: descriptor radius 10, at
     most k_cap = 100 neighbours, normals from normal_k = 30 neighbours by
-    default. Spans (`utils/profiling.py`): `fpfh`, and under it `normals`
-    (when computed here), `radius` (the neighbour lists) and `spfh` (the
-    histograms and their weighted sum)."""
+    default. Spans (`utils/profiling.py`): `fpfh`, and under it, wherever
+    the body runs eagerly, `normals` (when computed here), `radius` (the
+    neighbour lists) and `spfh` (the histograms and their weighted sum);
+    a replay (CUDA tensors, from a key's third call on) records `fpfh`
+    alone."""
     with span("fpfh"):
-        n = points.shape[0]
-        if mask is None:
-            mask = torch.ones((n,), dtype=torch.bool, device=points.device)
-        if normals is None:
-            with span("normals"):
-                normals = estimate_normals(points, mask=mask, k=normal_k)
-        with span("radius"):
-            nbrs = radius_search(points, points, radius, k_cap, db_mask=mask)
-        with span("spfh"):
-            s = spfh(points, normals, nbrs)                      # [N,33]
-            rows = torch.arange(n, device=points.device)[:, None]
-            not_self = nbrs.valid & (nbrs.idx != rows)
-            dist = torch.sqrt(torch.clamp_min(nbrs.dist2, 1e-12))
-            wgt = torch.where(not_self, 1.0 / dist, 0.0)
-            k_eff = torch.clamp_min(not_self.sum(dim=1).float(), 1.0)
-            nbr_spfh = group_points(s, nbrs.idx)                 # [N,K,33]
-            f = s + torch.sum(nbr_spfh * wgt[..., None], dim=1) \
-                / k_eff[:, None]
-            blocks = f.reshape(n, 3, N_BINS)
-            sums = torch.clamp_min(blocks.sum(dim=-1, keepdim=True), 1e-12)
-            return (100.0 * blocks / sums).reshape(n, 3 * N_BINS)
+        if points.device.type != "cuda":
+            return _fpfh_body(points, mask, normals, radius, k_cap, normal_k)
+        return fpfh_graph(points, mask, normals, radius, k_cap, normal_k)

@@ -75,12 +75,10 @@ def eigh3(A: torch.Tensor, degeneracy_eps: float = 1e-20):
     ok0 = n0 > degeneracy_eps * scale
     ok2 = n2 > degeneracy_eps * scale
 
-    def axis(vals):
-        return torch.tensor(vals, dtype=A.dtype,
-                            device=A.device).expand(v0.shape)
-
-    ex, ey, ez = axis([1.0, 0.0, 0.0]), axis([0.0, 1.0, 0.0]), \
-        axis([0.0, 0.0, 1.0])
+    # the unit axes as rows of an identity built on the device: no host
+    # copy, so the solver can be captured into a CUDA graph
+    eye = torch.eye(3, dtype=A.dtype, device=A.device)
+    ex, ey, ez = (eye[i].expand(v0.shape) for i in range(3))
     v0 = torch.where(ok0[..., None], v0, ex)
     v0 = v0 / torch.linalg.vector_norm(v0, dim=-1, keepdim=True)
 

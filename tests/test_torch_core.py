@@ -228,6 +228,70 @@ def test_eigh3_matches_jax(rng):
     np.testing.assert_allclose(dots, 1.0, atol=1e-4)
 
 
+def _eigh3_host_axes(A, degeneracy_eps=1e-20):
+    """`eigh3` as it was with its unit axes made from host lists (one
+    host-to-device copy each), kept to hold the device-built axes to."""
+    from pctpu_torch.ops.eigh3 import _cross, _eigvec_for, eigvalsh3
+    w = eigvalsh3(A)
+    v0, n0 = _eigvec_for(A, w[..., 0])
+    v2, n2 = _eigvec_for(A, w[..., 2])
+    scale = torch.clamp_min(torch.amax(torch.abs(w), dim=-1), 1.0) ** 4
+    ok0 = n0 > degeneracy_eps * scale
+    ok2 = n2 > degeneracy_eps * scale
+
+    def axis(vals):
+        return torch.tensor(vals, dtype=A.dtype,
+                            device=A.device).expand(v0.shape)
+
+    ex, ey, ez = axis([1.0, 0.0, 0.0]), axis([0.0, 1.0, 0.0]), \
+        axis([0.0, 0.0, 1.0])
+    v0 = torch.where(ok0[..., None], v0, ex)
+    v0 = v0 / torch.linalg.vector_norm(v0, dim=-1, keepdim=True)
+    v2 = torch.where(ok2[..., None], v2, ez)
+    v2 = v2 - torch.sum(v2 * v0, dim=-1, keepdim=True) * v0
+    norm2 = torch.linalg.vector_norm(v2, dim=-1, keepdim=True)
+    alt = _cross(v0, torch.where(torch.abs(v0[..., :1]) < 0.9, ex, ez + ey))
+    alt = alt / torch.linalg.vector_norm(alt, dim=-1, keepdim=True)
+    v2 = torch.where(norm2 > 1e-12, v2 / torch.clamp_min(norm2, 1e-30), alt)
+    v1 = _cross(v2, v0)
+    return w, torch.stack([v0, v1, v2], dim=-1)
+
+
+def _eigh3_batch(rng, case, dtype):
+    """[64,3,3] symmetric matrices: random spectra; degenerate ones (zero,
+    multiples of I, two equal eigenvalues, exact diagonals); or rank 1 and
+    2 (outer products, planar and collinear neighbourhoods)."""
+    Q = Rotation.from_rotvec(rng.normal(size=(64, 3))).as_matrix()
+    if case == "random":
+        A = rng.normal(size=(64, 3, 3))
+        A = A + np.swapaxes(A, 1, 2)
+    elif case == "degenerate":
+        w = np.repeat(rng.uniform(0.5, 5.0, (64, 1)), 3, axis=1)
+        w[16:32, 2] += 1.0                     # two equal eigenvalues
+        w[32:40] = 0.0                         # the zero matrix
+        A = (Q * w[:, None, :]) @ np.swapaxes(Q, 1, 2)
+        A[:16] = w[:16, :1, None] * np.eye(3)  # exact multiples of I
+        A[40:48] = np.eye(3) * rng.uniform(0.1, 3.0, (8, 1, 3))
+    else:
+        v = rng.normal(size=(64, 3, 2))
+        v[:32, :, 1] = 0.0                     # rank 1
+        A = v @ np.swapaxes(v, 1, 2)           # rank 2
+        A[48:] = np.eye(3) * np.array([0.0, 0.0, 1.0])
+    return torch.from_numpy(A.astype(dtype))
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("case", ["random", "degenerate", "rank_deficient"])
+def test_eigh3_device_axes_equal_host_list_axes(rng, case, dtype):
+    """`eigh3`'s unit axes, rows of an identity built on the device, give
+    the same bits as the former axes copied from host lists."""
+    A = _eigh3_batch(rng, case, dtype)
+    w, V = teigh3(A)
+    w_h, V_h = _eigh3_host_axes(A)
+    torch.testing.assert_close(w, w_h, rtol=0, atol=0, equal_nan=True)
+    torch.testing.assert_close(V, V_h, rtol=0, atol=0, equal_nan=True)
+
+
 def test_voxel_downsample_capped_matches_jax(rng):
     """Voxel centroids: masks and counts equal, points within 1e-4 m, for
     a binding cap (uniform stride) and a loose one. The cell-relative

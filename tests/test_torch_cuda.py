@@ -1847,3 +1847,126 @@ def test_voxel_run_means_rejects_bad_inputs(cuda):
         voxel.voxel_run_means(ps.t().contiguous().t(), ms, new_run, s_v, nv)
     with pytest.raises(ValueError, match="shapes"):
         voxel.voxel_run_means(ps[:, :2].contiguous(), ms, new_run, s_v, nv)
+
+
+# ---------------------------------------------------------------------------
+# the single pair's FPFH replayed from a CUDA graph
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def fpfh_graphs():
+    """`features/fpfh.py` with no key seen and no graph held, before and
+    after the test."""
+    from pctpu_torch.features import fpfh as fpfh_mod
+    fpfh_mod._SEEN.clear()
+    fpfh_mod._GRAPHS.clear()
+    yield fpfh_mod
+    fpfh_mod._SEEN.clear()
+    fpfh_mod._GRAPHS.clear()
+
+
+def _fpfh_key_inputs(key, hdl64, dev, seed=0):
+    """(points, mask, normals, kwargs) of one `fpfh` key: "hdl64_cap" is a
+    moved copy of the scan voxelised and capped as `register_pair` does
+    (2,048 points, `RegistrationConfig()`'s radius, caps and k), "small"
+    600 masked points of the scan with their normals given."""
+    from pctpu_torch.ops.normals import estimate_normals
+    from pctpu_torch.register import pipeline
+    rng = np.random.default_rng(seed)
+    c, s = np.cos(0.3 * seed), np.sin(0.3 * seed)
+    R = np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]], np.float32)
+    pts = (hdl64 @ R.T + rng.normal(scale=0.01, size=hdl64.shape)
+           ).astype(np.float32)
+    if key == "hdl64_cap":
+        cfg = pipeline.RegistrationConfig()
+        down = voxel.voxel_downsample(_t(pts, dev),
+                                      torch.ones(len(pts), dtype=torch.bool,
+                                                 device=dev), cfg.voxel_size)
+        down, _ = pipeline._cap_uniform(down, cfg.downsample_capacity)
+        return down.points, down.mask, None, dict(
+            radius=cfg.feature_radius, k_cap=cfg.feature_k_cap,
+            normal_k=cfg.normal_k)
+    sub = _t(pts[rng.choice(len(pts), 600, replace=False)], dev)
+    mask = _t(rng.uniform(size=600) > 0.1, dev)
+    nrm = estimate_normals(sub, mask=mask, k=12)
+    return sub, mask, nrm, dict(radius=3.0, k_cap=40, normal_k=12)
+
+
+def _fpfh_eager(fpfh_mod, pts, mask, nrm, kw):
+    return fpfh_mod._fpfh_body(pts, mask, nrm, kw["radius"], kw["k_cap"],
+                               kw["normal_k"])
+
+
+@pytest.mark.parametrize("key", ["hdl64_cap", "small"])
+def test_fpfh_replay_equals_eager_bit_for_bit(cuda, hdl64, fpfh_graphs, key):
+    """Every call at one key (eager, the capture's warm-up, replays) gives
+    the eager body's bits, on fresh clouds after the capture too."""
+    f = fpfh_graphs
+    for seed in range(4):
+        pts, mask, nrm, kw = _fpfh_key_inputs(key, hdl64, cuda, seed)
+        got = f.fpfh(pts, mask, nrm, **kw)
+        assert torch.equal(got, _fpfh_eager(f, pts, mask, nrm, kw)), seed
+    assert len(f._GRAPHS) == 1
+
+
+def test_fpfh_source_survives_the_targets_replay(cuda, hdl64, fpfh_graphs):
+    """`register_pair`'s order: the source's descriptors, then the
+    target's at the same key; the source's are unchanged by the target's
+    replay."""
+    f = fpfh_graphs
+    clouds = [_fpfh_key_inputs("hdl64_cap", hdl64, cuda, s) for s in (1, 2)]
+    for _ in range(2):                         # the first sighting, capture
+        for pts, mask, _, kw in clouds:
+            f.fpfh(pts, mask, **kw)
+    replays = f.fpfh_graph.replays
+    src = f.fpfh(clouds[0][0], clouds[0][1], **clouds[0][3])
+    kept = src.clone()
+    dst = f.fpfh(clouds[1][0], clouds[1][1], **clouds[1][3])
+    assert f.fpfh_graph.replays == replays + 2
+    assert torch.equal(src, kept) and not torch.equal(src, dst)
+    assert torch.equal(src, _fpfh_eager(f, clouds[0][0], clouds[0][1], None,
+                                        clouds[0][3]))
+
+
+def test_fpfh_graph_counters_by_call(cuda, hdl64, fpfh_graphs):
+    """0 captures at a key's first call, 1 at its second, then one replay
+    a call and no more captures."""
+    f = fpfh_graphs
+    pts, mask, nrm, kw = _fpfh_key_inputs("hdl64_cap", hdl64, cuda)
+    c0, r0 = f.fpfh_graph.captures, f.fpfh_graph.replays
+    seen = []
+    for _ in range(5):
+        f.fpfh(pts, mask, nrm, **kw)
+        seen.append((f.fpfh_graph.captures - c0, f.fpfh_graph.replays - r0))
+    assert seen == [(0, 0), (1, 0), (1, 1), (1, 2), (1, 3)], seen
+
+
+def test_fpfh_graph_second_key_captures_its_own(cuda, hdl64, fpfh_graphs):
+    """Two keys interleaved: each captures its own graph at its second
+    call and replays its own bits."""
+    f = fpfh_graphs
+    keys = [_fpfh_key_inputs(k, hdl64, cuda) for k in ("hdl64_cap", "small")]
+    c0 = f.fpfh_graph.captures
+    for _ in range(3):
+        for pts, mask, nrm, kw in keys:
+            got = f.fpfh(pts, mask, nrm, **kw)
+            assert torch.equal(got, _fpfh_eager(f, pts, mask, nrm, kw))
+    assert f.fpfh_graph.captures == c0 + 2 and len(f._GRAPHS) == 2
+
+
+def test_fpfh_graph_keeps_the_latest_keys(cuda, hdl64, fpfh_graphs):
+    """One more key than the bound drops the least recently used graph;
+    that key then starts over from its first sighting."""
+    f = fpfh_graphs
+    pts, mask, nrm, kw = _fpfh_key_inputs("small", hdl64, cuda)
+    radii = [2.0 + 0.5 * i for i in range(f._MAX_GRAPHS + 1)]
+    for r in radii:
+        for _ in range(2):
+            f.fpfh(pts, mask, nrm, **dict(kw, radius=r))
+    assert len(f._GRAPHS) == f._MAX_GRAPHS
+    c0, r0 = f.fpfh_graph.captures, f.fpfh_graph.replays
+    f.fpfh(pts, mask, nrm, **dict(kw, radius=radii[1]))
+    assert f.fpfh_graph.replays == r0 + 1
+    f.fpfh(pts, mask, nrm, **dict(kw, radius=radii[0]))
+    assert (f.fpfh_graph.captures, f.fpfh_graph.replays) == (c0, r0 + 1)
+    assert len(f._SEEN) == 1

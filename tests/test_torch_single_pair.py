@@ -170,6 +170,24 @@ def test_fpfh_matches_jax(rng):
     assert flips < 2e-3 and mean < 0.02 and mx < 15.0, (flips, mean, mx)
 
 
+def test_fpfh_on_cpu_tensors_never_takes_the_graph(rng):
+    """CPU tensors run the eager body: no graph captured or replayed, no
+    key remembered, the same bits on every call."""
+    from pctpu_torch.features import fpfh as fpfh_mod
+    pts = _t(_structured_scene(rng, 600))
+    mask = _t(rng.uniform(size=600) > 0.05)
+    counts = (fpfh_mod.fpfh_graph.captures, fpfh_mod.fpfh_graph.replays)
+    seen, graphs = dict(fpfh_mod._SEEN), dict(fpfh_mod._GRAPHS)
+    outs = [fpfh(pts, mask, radius=3.0, k_cap=40, normal_k=12)
+            for _ in range(3)]
+    assert (fpfh_mod.fpfh_graph.captures,
+            fpfh_mod.fpfh_graph.replays) == counts
+    assert dict(fpfh_mod._SEEN) == seen and dict(fpfh_mod._GRAPHS) == graphs
+    assert all(torch.equal(o, outs[0]) for o in outs[1:])
+    assert torch.equal(outs[0], fpfh_mod._fpfh_body(pts, mask, None, 3.0, 40,
+                                                    12))
+
+
 # ---------------------------------------------------------------------------
 # RANSAC, single pair
 # ---------------------------------------------------------------------------

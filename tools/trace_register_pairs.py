@@ -36,7 +36,9 @@ Chrome trace with every kernel-5 (`icp_mega_kernel`) launch required inside
 profiled calls `TRACE.report()` and the launches a call that kernel 5's,
 K1's and kernel V's counters (`icp_mega.launches`, `nn1.launches`,
 `voxel_run_means.launches`: the voxel centroids of each cloud) count (2,
-1 and 2 expected); written to `chiprun_out/trace_register_pair.json`.
+1 and 2 expected), and FPFH's graph counters (`fpfh_graph.captures`, 1 in
+the process, made in the warm-up; `fpfh_graph.replays`, 2 a call
+expected); written to `chiprun_out/trace_register_pair.json`.
 """
 import argparse
 import json
@@ -111,6 +113,7 @@ def trace_single(args, res, torch, profiling, scan, rng):
     when every check held."""
     import chip_smoke
     from pctpu_torch.core.cloud import PointCloud
+    from pctpu_torch.features.fpfh import fpfh_graph
     from pctpu_torch.ops import pallas_icp_mega, pallas_nn, voxel
     from pctpu_torch.register.pipeline import (RegistrationConfig,
                                                register_pair)
@@ -149,6 +152,7 @@ def trace_single(args, res, torch, profiling, scan, rng):
     profiling.TRACE.reset()
     n5, n1 = pallas_icp_mega.icp_mega.launches, pallas_nn.nn1.launches
     nvox = voxel.voxel_run_means.launches
+    nrep = fpfh_graph.replays
     ms = []
     with torch.profiler.profile(activities=acts):
         for _ in range(calls):
@@ -165,6 +169,8 @@ def trace_single(args, res, torch, profiling, scan, rng):
         "k1_launches_a_call": (pallas_nn.nn1.launches - n1) / calls,
         "voxel_run_means_launches_a_call":
         (voxel.voxel_run_means.launches - nvox) / calls,
+        "fpfh_graph_captures": fpfh_graph.captures,
+        "fpfh_graph_replays_a_call": (fpfh_graph.replays - nrep) / calls,
         "call_ms": ms, "median_call_ms": statistics.median(ms),
         "spans_a_call": sum(profiling.TRACE.counts.values()) / calls,
         "ms_a_call": {k: v * 1e3 / calls for k, v in
@@ -174,10 +180,14 @@ def trace_single(args, res, torch, profiling, scan, rng):
     print(f"register_pair, {calls} profiled calls: kernel 5 "
           f"{r['k5_launches_a_call']}, K1 {r['k1_launches_a_call']} and "
           f"voxel_run_means {r['voxel_run_means_launches_a_call']} "
-          f"launches a call\n" + r["report"], file=sys.stderr)
+          f"launches a call; fpfh_graph {r['fpfh_graph_captures']} "
+          f"captures, {r['fpfh_graph_replays_a_call']} replays a call\n"
+          + r["report"], file=sys.stderr)
     return (equal and in_place and r["k5_launches_a_call"] == 2
             and r["k1_launches_a_call"] == 1
-            and r["voxel_run_means_launches_a_call"] == 2)
+            and r["voxel_run_means_launches_a_call"] == 2
+            and r["fpfh_graph_captures"] == 1
+            and r["fpfh_graph_replays_a_call"] == 2)
 
 
 def main(argv=None):
