@@ -3,9 +3,12 @@
 `register_pairs` and `register_pair` under a profiler, the whole tree of
 stages with its counts, nested on the host's clock and in the profiler's
 ranges, and the outputs unchanged bit for bit; the Chrome trace of
-`profiler_trace`; and the benchmark's six readers of the spans."""
+`profiler_trace`; the ISS spans and counter of `keypoints="iss"`; and the
+benchmark's readers of the spans and of the ISS stage's kernels."""
 import torch_threads as _torch_threads  # noqa: F401
 
+import contextlib
+import dataclasses
 import itertools
 import json
 import sys
@@ -18,6 +21,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from pctpu_torch.core.cloud import PointCloud
+from pctpu_torch.features import iss
 from pctpu_torch.register import pipeline
 from pctpu_torch.utils import profiling
 
@@ -459,3 +463,123 @@ def test_single_readers_find_nothing_without_a_trace_or_a_span(monkeypatch):
     monkeypatch.delattr(profiling, "TRACE")              # a program
     assert _reader("icp_layout_ms_per_pair.single").read(  # without spans
         traced_run) is None
+
+
+# -- ISS keypoints: spans, counter, readers ---------------------------------
+
+ISS_CFG = dataclasses.replace(CFG, keypoints="iss")
+ISS_TREE = {**TREE, **{f"register_pairs/sites/iss{s}": 4   # 2B, B = 2
+                       for s in ("", "/radius", "/scatter", "/eig", "/nms")}}
+
+
+def _call_iss(src, dst):
+    return pipeline.register_pairs(
+        src, dst, ISS_CFG, generator=torch.Generator().manual_seed(0),
+        device="cpu")
+
+
+@pytest.fixture(scope="module")
+def traced_iss():
+    """`register_pairs(keypoints="iss")` on `_pairs()`, as `traced`
+    records the default sites."""
+    src, dst = _pairs()
+    return _record(lambda: _call_iss(src, dst))
+
+
+@pytest.mark.parametrize("path", sorted(ISS_TREE))
+def test_iss_call_records_each_path(traced_iss, path):
+    _, _, totals, counts, events = traced_iss
+    assert counts.get(path) == ISS_TREE[path], (path, counts)
+    assert totals[path] > 0
+    assert sum(1 for n, _, _ in events if n == path) == ISS_TREE[path]
+
+
+def test_iss_call_records_no_other_path(traced_iss):
+    assert set(traced_iss[3]) == set(ISS_TREE)
+
+
+def test_iss_parent_total_covers_its_children(traced_iss):
+    _parents_cover_children(traced_iss[2], ISS_TREE)
+
+
+def test_iss_child_ranges_lie_inside_their_parents(traced_iss):
+    _children_inside_parents(traced_iss[4])
+
+
+def test_iss_outputs_equal_with_the_profiler_on_and_off(traced_iss):
+    _outputs_equal(traced_iss[0], traced_iss[1])
+
+
+@pytest.mark.parametrize("profiled", [False, True])
+def test_iss_keypoints_calls_rise_by_2b_a_call(profiled):
+    """`iss_keypoints.calls`: once a cloud, 2B a `register_pairs` call,
+    whether a profiler records or not."""
+    src, dst = _pairs()
+    before = iss.iss_keypoints.calls
+    with (profile(activities=[ProfilerActivity.CPU]) if profiled
+          else contextlib.nullcontext()):
+        _call_iss(src, dst)
+    profiling.TRACE.reset()
+    assert iss.iss_keypoints.calls - before == 2 * src.points.shape[0]
+
+
+@pytest.fixture(scope="module")
+def traced_iss_cell():
+    """A traced run of `reg-iss-b16` on the CPU at 2 pairs of 4,096
+    points, one profiled call."""
+    from portbench.common.harness import run_cell
+    profiling.TRACE.reset()
+    res = run_cell("reg-iss-b16", 2**31 + 95, 0.0, True, device="cpu",
+                   traffic_overrides=dict(batch=2, pool_batches=1,
+                                          warmup_calls=1, check_calls=1,
+                                          trace_calls=1),
+                   config_overrides=dict(scan_points=4096),
+                   log=lambda m: None)
+    totals = dict(profiling.TRACE.totals)
+    profiling.TRACE.reset()
+    return res, totals
+
+
+def test_iss_readers_read_in_a_traced_run(traced_iss_cell):
+    res, totals = traced_iss_cell
+    v = res["metrics"]["iss_ms_per_pair.iss"]
+    assert v["unit"] == "ms" and v["value"] > 0
+    # the 2B spans' host ms over the profiled call's 2 pairs
+    assert v["value"] == pytest.approx(
+        totals["register_pairs/sites/iss"] * 1e3 / 2)
+    k = res["metrics"]["iss_kernels_per_pair.iss"]
+    assert k["unit"] == "kernels/pair"
+    assert k["value"] == 0.0          # the CPU launches no device kernel
+
+
+def test_iss_kernel_reader_counts_kernels_started_in_the_sites_spans():
+    """Kernels that start inside a `pb:frontend/keypoint_sites` span count
+    (its start inclusive, its end not); others, and spans of other names,
+    do not; over the profiled pairs."""
+    from portbench.common.harness import RunView
+    from portbench.common.trace import TraceView
+    kernels = [("k", 5, 6), ("k", 10, 11), ("k", 15, 16), ("k", 20, 21),
+               ("k", 31, 32), ("k", 45, 46), ("k", 52, 53)]
+    spans = {"frontend/keypoint_sites": [(30, 40), (10, 20)],
+             "frontend/match_features": [(40, 60)]}
+    t = TraceView(kernels, kernels, spans, [(0, 100)], 4, {}, set(), {})
+    run = RunView("pairs", 1, 4, [0.1], 0.1, 1.0, t)
+    assert _reader("iss_kernels_per_pair.iss").read(run) == 3 / 4
+
+
+def test_iss_readers_find_nothing_without_a_trace_or_a_span(monkeypatch):
+    from portbench.common.harness import RunView
+    from portbench.common.trace import TraceView
+    empty = TraceView([("k", 1, 2)], [], {}, [(0, 10)], 2, {}, set(), {})
+    traced_run = RunView("pairs", 1, 2, [0.1], 0.1, 1.0, empty)
+    untraced = RunView("pairs", 1, 2, [0.1], 0.1, 1.0, None)
+    profiling.TRACE.reset()
+    for name in ("iss_ms_per_pair.iss", "iss_kernels_per_pair.iss"):
+        assert _reader(name).read(untraced) is None
+        assert _reader(name).read(traced_run) is None    # never ran
+    profiling.TRACE.add("register_pairs/sites/iss", 0.006)
+    assert _reader("iss_ms_per_pair.iss").read(traced_run) == pytest.approx(
+        3.0)
+    profiling.TRACE.reset()
+    monkeypatch.delattr(profiling, "TRACE")              # a program
+    assert _reader("iss_ms_per_pair.iss").read(traced_run) is None

@@ -23,6 +23,7 @@ synthetic 124,668-point scan against its copy moved 35 deg),
    under the profiler both times, in turns.
 
     python3 tools/trace_register_pairs.py [--seed 0]
+        [--entry register_pairs|register_pair] [--keypoints all|iss]
 
 Prints one JSON line and writes it, with the reports, to
 `chiprun_out/trace_register_pairs.json`; the Chrome traces of step 3 go
@@ -39,6 +40,17 @@ K1's and kernel V's counters (`icp_mega.launches`, `nn1.launches`,
 1 and 2 expected), and FPFH's graph counters (`fpfh_graph.captures`, 1 in
 the process, made in the warm-up; `fpfh_graph.replays`, 2 a call
 expected); written to `chiprun_out/trace_register_pair.json`.
+
+With `--keypoints iss` the same for `register_pairs` with
+`RegistrationConfig(keypoints="iss")` at B 16: outputs on = off, one
+call's Chrome trace with every kernel launched inside
+`register_pairs/sites` put under a child of `register_pairs/sites/iss`
+(`radius`, `scatter`, `eig`, `nms`) but `keypoint_sites`' own mask and
+stack, counted apart; over 12 profiled calls `TRACE.report()` and the
+rise of `iss_keypoints.calls` (32 a call expected); and the ISS loop of
+both sides' voxel clouds timed untraced (synchronized, 10 repeats) beside
+its traced reading, and the whole call untraced; written to
+`chiprun_out/trace_register_pairs_iss.json`.
 """
 import argparse
 import json
@@ -190,12 +202,115 @@ def trace_single(args, res, torch, profiling, scan, rng):
             and r["fpfh_graph_replays_a_call"] == 2)
 
 
+def trace_iss(args, res, torch, profiling, scan, rng):
+    """`--keypoints iss`: res gains the ISS readings at B 16; True when
+    every check held."""
+    import chip_smoke
+    from pctpu_torch.core.cloud import PointCloud
+    from pctpu_torch.features import iss
+    from pctpu_torch.ops.voxel import voxel_downsample_capped
+    from pctpu_torch.register.pipeline import (RegistrationConfig,
+                                               keypoint_sites,
+                                               register_pairs)
+    dev = torch.device("cuda")
+    b, calls = 16, PROFILED[16]
+    src, dst, _ = chip_smoke.make_pairs(scan, rng, b, len(scan),
+                                        chip_smoke.ROT_DEG)
+    mask = torch.ones(src.shape[:2], dtype=torch.bool)
+    s_pc = PointCloud(torch.from_numpy(src), mask)
+    d_pc = PointCloud(torch.from_numpy(dst), mask)
+    cfg = RegistrationConfig(keypoints="iss")
+
+    def call():
+        out = register_pairs(s_pc, d_pc, cfg, generator=torch.Generator(
+            device=dev).manual_seed(args.seed), device=dev)
+        torch.cuda.synchronize()
+        return out
+
+    for _ in range(2):
+        off = call()
+    profiling.TRACE.reset()
+    logdir = OUT / "trace_register_pairs_iss"
+    with profiling.profiler_trace(str(logdir)):
+        on = call()
+    equal = all(torch.equal(x, y) for x, y in zip(off, on))
+    trace_file = max(logdir.glob("trace-*.json"),
+                     key=lambda f: f.stat().st_mtime)
+    kmap = launch_map(trace_file)
+    by_range = Counter(r for _, r in kmap)
+    sites = {r: n for r, n in by_range.items()
+             if r and r.startswith("register_pairs/sites")}
+    children = {f"register_pairs/sites/iss/{c}"
+                for c in ("radius", "scatter", "eig", "nms")}
+    in_place = (set(sites) <= children | {"register_pairs/sites"}
+                and set(sites) & children == children)
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    profiling.TRACE.reset()
+    before = iss.iss_keypoints.calls
+    traced_ms = []
+    with torch.profiler.profile(activities=acts):
+        for _ in range(calls):
+            t = time.perf_counter()
+            call()
+            traced_ms.append((time.perf_counter() - t) * 1e3)
+    rise = (iss.iss_keypoints.calls - before) / calls
+    totals = {k: v * 1e3 / calls for k, v in profiling.TRACE.totals.items()}
+    report = profiling.TRACE.report()
+    profiling.TRACE.reset()
+
+    downs = [voxel_downsample_capped(pc.points.to(dev), pc.mask.to(dev),
+                                     cfg.voxel_size,
+                                     cfg.downsample_capacity)[0]
+             for pc in (s_pc, d_pc)]
+    loop_ms, call_ms = [], []
+    for i in range(12):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for d in downs:
+            keypoint_sites(d, cfg)
+        torch.cuda.synchronize()
+        if i >= 2:
+            loop_ms.append((time.perf_counter() - t) * 1e3)
+    for i in range(12):
+        t = time.perf_counter()
+        call()
+        if i >= 2:
+            call_ms.append((time.perf_counter() - t) * 1e3)
+    res["register_pairs_iss"] = {
+        "pairs_a_call": b, "calls_profiled": calls,
+        "outputs_equal_on_off": equal, "kernels": len(kmap),
+        "kernels_by_range": dict(by_range), "sites_kernels": sites,
+        "launches_in_place": in_place,
+        "iss_keypoints_calls_a_call": rise,
+        "traced_call_ms": traced_ms,
+        "traced_ms_a_call": totals,
+        "iss_loop_ms_untraced": loop_ms,
+        "median_iss_loop_ms_untraced": statistics.median(loop_ms),
+        "median_iss_ms_traced": totals.get("register_pairs/sites/iss"),
+        "call_ms_untraced": call_ms,
+        "median_call_ms_untraced": statistics.median(call_ms),
+        "report": report}
+    r = res["register_pairs_iss"]
+    print(f"register_pairs keypoints=iss, B {b}: kernels under sites "
+          f"{sites}; iss_keypoints.calls +{rise} a call; the ISS loop "
+          f"{r['median_iss_loop_ms_untraced']:.2f} ms untraced, "
+          f"{r['median_iss_ms_traced']:.2f} ms traced; the call "
+          f"{r['median_call_ms_untraced']:.2f} ms untraced\n"
+          + report, file=sys.stderr)
+    return equal and in_place and rise == 2 * b
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--entry", choices=("register_pairs", "register_pair"),
                    default="register_pairs")
+    p.add_argument("--keypoints", choices=("all", "iss"), default="all")
     args = p.parse_args(argv)
+    if args.keypoints == "iss" and args.entry != "register_pairs":
+        p.error("--keypoints iss traces register_pairs")
 
     import torch
     import chip_smoke
@@ -218,6 +333,15 @@ def main(argv=None):
            "spans": span_costs(profiling, torch)}
     rng = np.random.default_rng([args.seed, 9])
     scan = chip_smoke.lidar_scan(rng)
+    if args.keypoints == "iss":
+        ok = trace_iss(args, res, torch, profiling, scan, rng)
+        OUT.mkdir(exist_ok=True)
+        (OUT / "trace_register_pairs_iss.json").write_text(
+            json.dumps(res, indent=1))
+        print(json.dumps({k: ({f: x for f, x in v.items() if f != "report"}
+                              if k == "register_pairs_iss" else v)
+                          for k, v in res.items()}))
+        return 0 if ok else 1
     if args.entry == "register_pair":
         ok = trace_single(args, res, torch, profiling, scan, rng)
         OUT.mkdir(exist_ok=True)
